@@ -1,11 +1,12 @@
-"""TPU-native gradient-domain renderer.
+"""Gradient-domain renderer in JAX.
 
 A brand-new JAX/Pallas framework with the capabilities of
 ``mmanzi/gradientdomain-mitsuba`` (Mitsuba 0.5 + gradient-domain path
 tracing [Kettunen et al. 2015] + gradient-domain BDPT [Manzi et al. 2015]
-+ screened-Poisson reconstruction), re-designed TPU-first:
++ screened-Poisson reconstruction), re-designed for accelerators:
 
-- wavefront (not megakernel) light transport over SoA batches in HBM
+- wavefront (not megakernel) light transport over SoA batches in
+  device memory
 - counter-based RNG so shift-mapped offset paths replay base-path random
   numbers by construction (reference: gradientdomain-mitsuba needs
   explicit sampler state copying in src/integrators/gpt/gpt.cpp)

@@ -1,9 +1,9 @@
 """Vector math on [..., 3] jnp arrays (SoA-friendly foundation types).
 
-TPU-native replacement for Mitsuba's Point/Vector/Normal/Frame/Transform
+Replacement for Mitsuba's Point/Vector/Normal/Frame/Transform
 headers (reference: include/mitsuba/core/{vector,normal,frame,transform}.h).
 Everything is batched: a "vector" is any array whose last axis is 3, so all
-functions vmap/jit transparently and land on the VPU.
+functions vmap/jit transparently.
 """
 from __future__ import annotations
 
@@ -101,20 +101,27 @@ def spherical_coordinates(d):
 # 4x4 transforms (host-side / scene-build use mostly; also jit-safe)
 # ---------------------------------------------------------------------------
 
+def _mat3_apply(a, v):
+    """a [3, 3] applied to row vectors v [..., 3], as explicit f32
+    multiply-adds: no matrix unit, so no reduced-precision (TF32) path."""
+    return (v[..., 0:1] * a[:, 0] + v[..., 1:2] * a[:, 1] +
+            v[..., 2:3] * a[:, 2])
+
+
 def transform_point(m, p):
     """Apply 4x4 matrix m to points p [..., 3]."""
-    r = p @ m[:3, :3].T + m[:3, 3]
-    w = p @ m[3, :3].T + m[3, 3]
+    r = _mat3_apply(m[:3, :3], p) + m[:3, 3]
+    w = _mat3_apply(m[3:4, :3], p)[..., 0] + m[3, 3]
     return r / w[..., None]
 
 
 def transform_vector(m, v):
-    return v @ m[:3, :3].T
+    return _mat3_apply(m[:3, :3], v)
 
 
 def transform_normal(m_inv, n):
     """Normals transform by the inverse-transpose."""
-    return n @ m_inv[:3, :3]
+    return _mat3_apply(m_inv[:3, :3].T, n)
 
 
 def np_look_at(origin, target, up):

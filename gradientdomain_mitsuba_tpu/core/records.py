@@ -1,6 +1,6 @@
 """Common sampling-record currency as NamedTuples of arrays (SoA pytrees).
 
-TPU-native equivalent of Mitsuba's record structs (Intersection,
+Equivalent of Mitsuba's record structs (Intersection,
 DirectSamplingRecord, BSDFSamplingRecord — include/mitsuba/render/records.inl
 and shape.h).  Each field is a batched jnp array; the tuple as a whole is a
 JAX pytree so it flows through jit/vmap/scan/shard_map.

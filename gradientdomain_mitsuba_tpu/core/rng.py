@@ -15,7 +15,7 @@ all four offset paths.  Checkpoint/resume is exact (resume = continue at the
 next sample_idx), and multi-chip rendering needs no RNG coordination at all.
 
 The hash is a 3-round Feistel-free mix built from lowbias32-style avalanche
-steps over uint32 lanes — cheap on the VPU (a handful of int ops per draw,
+steps over uint32 lanes — cheap (a handful of int ops per draw,
 no table lookups) and plenty for Monte Carlo integration.  Statistical
 quality is validated by the chi^2 tests in tests/test_rng.py.
 """
@@ -133,7 +133,7 @@ def _sobol2_bits(n):
     """2nd Sobol dimension of index n (uint32 bits)."""
     n = jnp.asarray(n, jnp.uint32)
     r = jnp.zeros_like(n)
-    for k in range(32):   # static unroll: 32 VPU int ops
+    for k in range(32):   # static unroll: 32 int ops
         r = r ^ jnp.where((n >> np.uint32(k)) & np.uint32(1),
                           _SOBOL2_DIRS[k], np.uint32(0))
     return r

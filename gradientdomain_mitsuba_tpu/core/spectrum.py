@@ -10,7 +10,8 @@ LUMINANCE_WEIGHTS = np.array([0.212671, 0.715160, 0.072169], np.float32)
 
 
 def luminance(s):
-    return s @ jnp.asarray(LUMINANCE_WEIGHTS)
+    w = LUMINANCE_WEIGHTS
+    return s[..., 0] * w[0] + s[..., 1] * w[1] + s[..., 2] * w[2]
 
 
 def max_component(s):

@@ -1,6 +1,6 @@
 """Sampling warps: [0,1)^2 -> distributions on spheres/disks/cones.
 
-TPU-native equivalent of Mitsuba's warp namespace
+Equivalent of Mitsuba's warp namespace
 (include/mitsuba/core/warp.h, src/libcore/warp.cpp).  These must match the
 reference's mappings for statistical identity of the estimators; Mitsuba 0.5
 uses the Shirley-Chiu concentric disk mapping for cosine-hemisphere.

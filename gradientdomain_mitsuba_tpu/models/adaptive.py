@@ -3,7 +3,7 @@
 The reference wraps a SamplingIntegrator and keeps sampling each 32x32
 block until a t-test bounds the pixel error below `maxError` relative to
 the scene's average luminance (or `maxSampleFactor` is hit).  The
-TPU-native version keeps the same statistics but replaces block-serial
+This version keeps the same statistics but replaces block-serial
 resampling with WAVEFRONT REFINEMENT: every round gathers the
 still-unconverged pixel ids into one fixed-size batch (static shape for
 XLA; sorted by error so the worst pixels refine first) and traces them
@@ -26,6 +26,8 @@ import numpy as np
 
 from ..ops import film as film_ops
 from .path import PathTracer
+
+_LUM_W = np.asarray([0.2126, 0.7152, 0.0722], np.float32)
 
 
 class AdaptiveTracer:
@@ -53,7 +55,7 @@ class AdaptiveTracer:
     def _base_pass(self, scene, seed, sample_idx, acc, acc2, cnt):
         pos, L = self.inner.trace_pass(scene, seed, sample_idx)
         L = jnp.nan_to_num(L, nan=0.0, posinf=0.0, neginf=0.0)
-        lum = L @ jnp.asarray([0.2126, 0.7152, 0.0722])
+        lum = jnp.matmul(L, _LUM_W, precision=jax.lax.Precision.HIGHEST)
         return acc + L, acc2 + lum * lum, cnt + 1.0
 
     @functools.partial(jax.jit, static_argnums=(0,))
@@ -65,7 +67,7 @@ class AdaptiveTracer:
                                        pixel_id=ids)
         L = jnp.nan_to_num(L, nan=0.0, posinf=0.0, neginf=0.0)
         L = jnp.where(live[:, None], L, 0.0)
-        lum = L @ jnp.asarray([0.2126, 0.7152, 0.0722])
+        lum = jnp.matmul(L, _LUM_W, precision=jax.lax.Precision.HIGHEST)
         acc = acc.at[ids].add(L)
         acc2 = acc2.at[ids].add(lum * lum)
         cnt = cnt.at[ids].add(jnp.where(live, 1.0, 0.0))
@@ -74,8 +76,8 @@ class AdaptiveTracer:
     @functools.partial(jax.jit, static_argnums=(0, 2))
     def _error(self, stats, avg_floor=1e-3):
         acc, acc2, cnt = stats
-        lum_w = jnp.asarray([0.2126, 0.7152, 0.0722])
-        mean_l = (acc @ lum_w) / cnt
+        mean_l = jnp.matmul(acc, _LUM_W,
+                            precision=jax.lax.Precision.HIGHEST) / cnt
         var = jnp.maximum(acc2 / cnt - mean_l ** 2, 0.0) * (
             cnt / jnp.maximum(cnt - 1.0, 1.0))
         std_err = jnp.sqrt(var / cnt)

@@ -1,6 +1,6 @@
 """`direct` and `ao` integrators.
 
-TPU-native replacements for src/integrators/direct/direct.cpp (direct
+device-side replacements for src/integrators/direct/direct.cpp (direct
 illumination with light/BSDF MIS — semantically `path` truncated to
 maxDepth 2) and src/integrators/misc/ao.cpp (ambient occlusion with
 cosine-weighted visibility probes).
@@ -41,8 +41,7 @@ class AOIntegrator:
         self.settings = settings
         n_tris = int(scene.geom.indices.shape[0])
         self.closest, self.occluded = common.choose_intersector(
-            settings, n_tris,
-            int(scene.geom.clusters.offset.shape[0]))
+            settings, n_tris)
         props = settings.integrator_props
         self.ray_length = float(props.get("rayLength", -1.0))
         self.filter_kind = film_ops.FILTERS.get(settings.rfilter, 0)
@@ -122,8 +121,7 @@ class FieldIntegrator:
         self.settings = settings
         n_tris = int(scene.geom.indices.shape[0])
         self.closest, self.occluded = common.choose_intersector(
-            settings, n_tris,
-            int(scene.geom.clusters.offset.shape[0]))
+            settings, n_tris)
         props = settings.integrator_props
         self.field = str(props.get("field", "distance"))
         self.has_textures = getattr(settings, "has_textures", 0)

@@ -1,6 +1,6 @@
 """Energy redistribution path tracing (Cline, Talbot, Egbert 2005).
 
-TPU-native replacement for src/integrators/erpt/erpt.{h,cpp}: the
+Replacement for src/integrators/erpt/erpt.{h,cpp}: the
 reference seeds finite Metropolis chains from ordinary path-tracer
 samples and redistributes each seed's energy through SMALL path-space
 perturbations (lens/caustic/multi-chain mutations).  Here the same

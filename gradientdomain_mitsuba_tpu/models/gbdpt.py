@@ -1,6 +1,6 @@
 """Gradient-Domain Bidirectional Path Tracing (G-BDPT).
 
-TPU-native replacement for the fork's gbdpt integrator
+Replacement for the fork's gbdpt integrator
 (src/integrators/gbdpt/gbdpt.cpp + gbdpt_proc.cpp, Manzi et al., EGSR
 2015): per pixel sample, the base BDPT evaluation (models/bdpt.py) is
 augmented with FOUR shifted evaluations whose EYE subpath is offset to the
@@ -123,7 +123,7 @@ class GBDPTracer(BDPTracer):
     def _offset_primaries(self, scene, seed, sample_idx, pixel_id, W, H):
         """Trace ALL FOUR offset-pixel camera rays as one 4N batch
         (round-2 perf pass: the four offset views previously rebuilt
-        frames/material gathers sequentially — VERDICT r1 weak #4; one
+        frames/material gathers sequentially; one
         4N-lane batch shares every eye-side computation and dispatch)."""
         N = pixel_id.shape[0]
         px = (pixel_id % W).astype(jnp.float32)

@@ -1,6 +1,6 @@
 """Irradiance caching (Ward/Tabellion style) on the primary-hit lattice.
 
-TPU-native replacement for the `irrcache` integrator
+Replacement for the `irrcache` integrator
 (src/integrators/irrcache/irrcache.{cpp,h} + librender octree cache):
 the reference builds an octree of irradiance records lazily during
 rendering, with data-dependent insertion and nearest-record queries —

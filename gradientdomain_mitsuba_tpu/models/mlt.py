@@ -1,6 +1,6 @@
 """Metropolis light transport over the bidirectional path sampler.
 
-TPU-native replacement for the `mlt` integrator
+Replacement for the `mlt` integrator
 (src/integrators/mlt/mlt.cpp + libbidir PathSampler in "bidirectional"
 mode): the reference runs a handful of Markov chains, each mutating a
 full bidirectional path with Veach's technique-aware mutations

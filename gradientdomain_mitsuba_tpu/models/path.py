@@ -1,6 +1,6 @@
 """Wavefront path tracer with NEE + MIS.
 
-TPU-native replacement for the `path` integrator (src/integrators/path/
+Replacement for the `path` integrator (src/integrators/path/
 path.cpp, MIPathTracer::Li) re-architected per SURVEY.md §8.1: instead of a
 recursive per-ray megakernel, EVERY pixel's ray advances one bounce per
 iteration of a fori_loop over SoA megabatches resident in HBM; dead lanes
@@ -52,9 +52,7 @@ class PathTracer:
         self.env_kind = settings.env_kind
         n_tris = int(scene.geom.indices.shape[0])
         self.closest, self.occluded = common.instrument_intersectors(
-            self, *common.choose_intersector(
-                settings, n_tris,
-                int(scene.geom.clusters.offset.shape[0])))
+            self, *common.choose_intersector(settings, n_tris))
         self.large_scene = n_tris > common.BRUTE_FORCE_MAX_TRIS
         self.count_rays = False  # set True BEFORE first render
         self.ray_tally = None
@@ -125,8 +123,7 @@ class PathTracer:
             # ---- emitter / environment hit at current vertex --------------
             cos_front = m.dot(its.ns, wi_world)
             is_emitter = its.valid & (its.emitter_id >= 0) & (cos_front > 0)
-            rad = common.fast_row_gather(scene.emitters.radiance,
-                                          jnp.maximum(its.emitter_id, 0))
+            rad = scene.emitters.radiance[jnp.maximum(its.emitter_id, 0)]
             lum_pdf = em_ops.pdf_area_direct(
                 scene, self.n_area, self.has_env, its.emitter_id,
                 s["o"], its.p, its.ng, n_delta=self.n_delta)
@@ -268,8 +265,7 @@ class PathTracer:
         wi_world = -state["d"]
         cos_front = m.dot(its.ns, wi_world)
         is_emitter = its.valid & (its.emitter_id >= 0) & (cos_front > 0)
-        rad = common.fast_row_gather(scene.emitters.radiance,
-                                      jnp.maximum(its.emitter_id, 0))
+        rad = scene.emitters.radiance[jnp.maximum(its.emitter_id, 0)]
         lum_pdf = em_ops.pdf_area_direct(
             scene, self.n_area, self.has_env, its.emitter_id,
             state["o"], its.p, its.ng, n_delta=self.n_delta)
@@ -292,13 +288,10 @@ class PathTracer:
 
     # -- full frame -----------------------------------------------------------
     def samples_per_batch(self, n_samples):
-        """Lanes per dispatch: ~64k measured fastest on v5e for the
-        small-scene matmul-sweep path; the large-scene cluster traversal
-        instead AMORTIZES its per-call worklist build + dispatch floor
-        over bigger wavefronts, so it targets GDMT_LANES (default 1M)
-        lanes per dispatch (round-5 scaling: a single traversal call
-        carries ~108 ms of fixed cost; 65k/262k/1M-ray calls measured
-        2.8/1.1/0.79 us/ray)."""
+        """Lanes per dispatch, targeting GDMT_LANES: 64k for small scenes
+        and 1M for large ones, whose traversal has a larger fixed cost
+        per call.  The defaults have not been re-derived for the GPU
+        yet."""
         import os
         N = self.settings.width * self.settings.height
         large = getattr(self, "large_scene", False)  # cluster-path scene

@@ -1,6 +1,6 @@
 """Screened-Poisson reconstruction (L2 conjugate gradient, L1 IRLS).
 
-TPU-native replacement for the fork's poisson_solver
+Replacement for the fork's poisson_solver
 (src/integrators/poisson_solver/Solver.cpp, OpenMP CPU backend): solves
 
     min_I  || Dx I - gx ||_p + || Dy I - gy ||_p + alpha^2-screened data term
@@ -10,7 +10,7 @@ per RGB channel fully on-device.  Dx/Dy are forward differences with
 Neumann boundaries expressed as padded shifts (XLA fuses the stencils);
 CG state lives in [3, H, W] arrays; the L1 mode runs IRLS outer iterations
 reweighting all residuals by 1/max(|r|, eps).  At film resolutions this is
-sub-100ms work on a TPU chip — render and reconstruction fuse into one
+small work next to the render — render and reconstruction fuse into one
 device program with no host round trip (SURVEY.md §8.1).
 
 Semantics notes (vs the reference):

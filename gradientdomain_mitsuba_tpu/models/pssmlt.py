@@ -1,6 +1,6 @@
 """Primary-sample-space Metropolis light transport (Kelemen et al. 2002).
 
-TPU-native replacement for the `pssmlt` integrator
+Replacement for the `pssmlt` integrator
 (src/integrators/pssmlt/pssmlt.cpp + libbidir PathSampler in
 "unidirectional" mode): instead of one Markov chain per worker thread
 mutating a sampler-replay stream, thousands of INDEPENDENT chains run in

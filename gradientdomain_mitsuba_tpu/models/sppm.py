@@ -1,6 +1,6 @@
 """Stochastic progressive photon mapping on a sorted hash grid.
 
-TPU-native replacement for the reference's photon-mapping family
+Replacement for the reference's photon-mapping family
 (src/integrators/photonmapper/{photonmapper,ppm,sppm}.cpp +
 src/librender/photonmap.cpp): instead of a balanced kd-tree of photons
 queried by per-thread kNN lookups, every pass
@@ -112,8 +112,7 @@ class SPPMTracer(PathTracer):
             wi_world = -d
             cos_front = m.dot(its.ns, wi_world)
             is_em = its.valid & (its.emitter_id >= 0) & (cos_front > 0)
-            rad = common.fast_row_gather(scene.emitters.radiance,
-                                         jnp.maximum(its.emitter_id, 0))
+            rad = scene.emitters.radiance[jnp.maximum(its.emitter_id, 0)]
             L = L + jnp.where((alive & is_em)[..., None], tp * rad, 0.0)
             if self.has_env:
                 env_L = em_ops.eval_env(scene, self.env_kind, d)

@@ -1,6 +1,6 @@
 """Path tracing with dipole subsurface scattering.
 
-TPU-native analog of rendering a scene whose shapes carry the `dipole`
+Analog of rendering a scene whose shapes carry the `dipole`
 subsurface plugin (src/subsurface/dipole.cpp): the reference's
 Subsurface::preprocess builds an irradiance octree once per render and
 every integrator adds its.LoSub(...) at intersections with an attached

@@ -1,6 +1,6 @@
 """Wavefront volumetric path tracer (homogeneous + heterogeneous media).
 
-TPU-native replacement for the `volpath` / `volpath_simple` integrators
+Replacement for the `volpath` / `volpath_simple` integrators
 (src/integrators/volpath/volpath{,_simple}.cpp): the surface path loop of
 models/path.py extended with per-lane medium tracking, free-flight
 distance sampling, phase-function scattering, and attenuated shadow rays
@@ -222,8 +222,7 @@ class VolPathTracer(PathTracer):
             # ================= SURFACE EVENT branch ========================
             cos_front = m.dot(its.ns, wi_world)
             is_emitter = its.valid & (its.emitter_id >= 0) & (cos_front > 0)
-            rad = common.fast_row_gather(scene.emitters.radiance,
-                                         jnp.maximum(its.emitter_id, 0))
+            rad = scene.emitters.radiance[jnp.maximum(its.emitter_id, 0)]
             lum_pdf = em_ops.pdf_area_direct(
                 scene, self.n_area, self.has_env, its.emitter_id,
                 s["last_vtx"], its.p, its.ng, n_delta=self.n_delta)
@@ -417,8 +416,7 @@ class VolPathTracer(PathTracer):
         wi_world = -state["d"]
         cos_front = m.dot(its.ns, wi_world)
         is_emitter = its.valid & (its.emitter_id >= 0) & (cos_front > 0)
-        rad = common.fast_row_gather(scene.emitters.radiance,
-                                     jnp.maximum(its.emitter_id, 0))
+        rad = scene.emitters.radiance[jnp.maximum(its.emitter_id, 0)]
         lum_pdf = em_ops.pdf_area_direct(
             scene, self.n_area, self.has_env, its.emitter_id,
             state["last_vtx"], its.p, its.ng, n_delta=self.n_delta)

@@ -2,7 +2,7 @@
 
 The reference deposits VPLs by random-walking from the emitters, then
 shades every pixel against every VPL with clamped point-to-point
-transport.  That is an outer-product workload — ideal for the TPU: the
+transport.  That is an outer-product workload — ideal for a wavefront: the
 camera pass produces one shading record per pixel, the VPL table is a
 small SoA array, and the [pixels x VPL-chunk] contribution matrix is
 evaluated branch-free with one shadow-ray batch per chunk.

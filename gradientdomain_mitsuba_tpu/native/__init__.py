@@ -7,14 +7,16 @@ bottleneck scene preparation (SURVEY.md §3.8):
   bvh_builder.cpp — binned-SAH BVH construction (skdtree.cpp analog)
 
 Libraries build lazily with g++ on first use and are cached next to the
-sources; every native component has a pure-Python fallback so the
-framework works without a toolchain.
+sources (``_<name>.so``, ignored by git).  Every native component has a
+pure-Python fallback, so the framework works without a toolchain; a
+failed build prints one warning to stderr before falling back.
 """
 from __future__ import annotations
 
 import ctypes
 import os
 import subprocess
+import sys
 import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -27,7 +29,7 @@ def _build_lib(name: str):
     out = os.path.join(_HERE, "_" + name + ".so")
     if (not os.path.exists(out)
             or os.path.getmtime(out) < os.path.getmtime(src)):
-        cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
+        cmd = ["g++", "-O3", "-shared", "-fPIC",
                "-std=c++17", src, "-o", out + ".tmp"]
         subprocess.run(cmd, check=True, capture_output=True)
         os.replace(out + ".tmp", out)
@@ -40,6 +42,12 @@ def get_lib(name: str):
         if name not in _LIBS:
             try:
                 _LIBS[name] = _build_lib(name)
-            except Exception:
+            except Exception as e:
+                detail = getattr(e, "stderr", b"") or b""
+                if isinstance(detail, bytes):
+                    detail = detail.decode(errors="replace")
+                print(f"warning: native {name} unavailable ({e!r}"
+                      f"{': ' + detail.strip() if detail else ''}); "
+                      "using the pure-Python fallback", file=sys.stderr)
                 _LIBS[name] = None
         return _LIBS[name]

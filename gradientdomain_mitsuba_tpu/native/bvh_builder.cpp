@@ -1,6 +1,6 @@
 // Native binned-SAH BVH builder.
 //
-// TPU-native counterpart of Mitsuba's C++ SAH kd-tree builder
+// Counterpart of Mitsuba's C++ SAH kd-tree builder
 // (src/librender/skdtree.cpp + include/mitsuba/render/gkdtree.h): the
 // device consumes flat BVH arrays (see scene/bvh.py for the layout); this
 // builder produces them at native speed for large scenes where the numpy

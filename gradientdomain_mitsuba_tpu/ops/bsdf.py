@@ -1,11 +1,11 @@
 """BSDF sample/eval/pdf: branch-free SoA dispatch over the material enum.
 
-TPU-native replacement for Mitsuba's BSDF plugin virtual dispatch
+Replacement for Mitsuba's BSDF plugin virtual dispatch
 (src/bsdfs/{diffuse,conductor,dielectric,roughconductor,plastic,
 roughplastic,roughdiffuse,phong,thindielectric}.cpp + microfacet.h).
 Every function is batched over N surface interactions; each material model
 is evaluated with vector ops and combined with jnp.where masks — no
-data-dependent branching, so the VPU stays dense.  Mitsuba conventions:
+data-dependent branching, so lanes never diverge.  Mitsuba conventions:
 
   - directions in the LOCAL shading frame, +z = shading normal
   - wi points AWAY from the surface toward the previous vertex
@@ -74,10 +74,8 @@ def gather_params(materials, mid, albedo_override=None,
                   opacity_override=None) -> MatParams:
     """Material parameters for a batch of ids [N] — ONE gather of the
     packed [M, 24] row table (Materials.packed) instead of 11 separate
-    gathers; fields are static slices of the row.  The gather itself
-    rides the MXU as a one-hot matmul on TPU (common.fast_row_gather)."""
-    from .common import fast_row_gather
-    row = fast_row_gather(materials.packed, mid)
+    gathers; fields are static slices of the row."""
+    row = materials.packed[mid]
     refl = row[..., 2:5]
     if albedo_override is not None:
         refl = albedo_override
@@ -783,7 +781,7 @@ def eval(p: MatParams, wi, wo, kinds=None):
 
     `kinds` (an optional static frozenset of material enums present in
     the scene) prunes absent models at trace time — a large compile-time
-    and VPU saving for typical scenes."""
+    and run-time saving for typical scenes."""
     if p.blend is not None:
         # blendbsdf.cpp: f = (1-w) f_child0 + w f_child1.  Lanes whose
         # material is not a blend carry w = 0 and child0 = own row.
@@ -1289,12 +1287,8 @@ def roughness(materials, mid):
     inf for pure diffuse.
 
     Evaluated per MATERIAL ROW first (the table is tiny), then gathered
-    per lane through the one-hot matmul — a direct `kind[mid]` XLA
-    gather at [4, 65k] lanes measured 2.4 ms/call on v5e (25% of the
-    whole G-PT bounce loop); the one-hot dot is ~30 us."""
-    from . import common
-    table = _roughness_table(materials)          # [M]
-    return common.fast_row_gather(table[:, None], mid)[..., 0]
+    per lane."""
+    return _roughness_table(materials)[mid]
 
 
 def _roughness_table(materials):

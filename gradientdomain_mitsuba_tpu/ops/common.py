@@ -1,6 +1,6 @@
 """Scene-level intersection wrappers: traversal + hit-record fill.
 
-TPU-native replacement for Scene::rayIntersect + Shape::fillIntersectionRecord
+Replacement for Scene::rayIntersect + Shape::fillIntersectionRecord
 (src/librender/scene.cpp, shape.cpp, trimesh.cpp): traversal returns
 (t, u, v, prim); this module gathers vertex attributes and material/emitter
 ids into the flat Intersection record used by every integrator.
@@ -51,49 +51,36 @@ def add_sphere_intersections(closest_tri, occl_tri):
     return closest, occluded
 
 
-def choose_intersector(settings, n_tris: int, n_clusters: int = 0):
+def choose_intersector(settings, n_tris: int):
     """Returns (closest, occluded) with signature (o, d, mint, maxt, geom),
     with analytic-sphere merging layered on top (add_sphere_intersections;
-    compiles away when the scene has no analytic spheres).  Triangle path:
+    compiles away when the scene has no analytic spheres).
 
-    On TPU, small scenes (padded tris <= MATMUL_MAX_TRIS) use the
-    linear-MT matmul sweep (intersect_matmul): the per-pair
-    Moeller-Trumbore arithmetic rides the MXU as one [R,10] @ [10,4T]
-    f32 matmul, leaving ~15 VPU ops/pair of sign-fixed comparisons vs
-    the brute path's ~50 (the VPU is the measured bottleneck of every
-    traversal formulation on this hardware).  On CPU backends small
-    scenes keep the exact brute scan (tests compare against it).  Above
-    the threshold: the Pallas cluster-DMA traversal kernel on TPU (9-16x
-    over the jnp clustered path at 8k tris); the two-level clustered jnp
-    traversal on CPU (Mosaic kernels only run on real TPUs)."""
+    One triangle traversal per platform and regime:
+
+    =========  ===============================  ==========================
+    backend    n_tris <= BRUTE_FORCE_MAX_TRIS   larger scenes
+    =========  ===============================  ==========================
+    "gpu"      fused sweep kernel               SoA per-lane stack BVH
+               (ops/pallas_sweep.py)            traversal (stack depth
+                                                settings.stack_depth)
+    other      brute scan (intersect_brute)     two-level cluster
+                                                traversal
+    =========  ===============================  ==========================
+    """
     import jax
-    import os
-    on_cpu = jax.default_backend() == "cpu"
+    on_gpu = jax.default_backend() == "gpu"
     if n_tris <= BRUTE_FORCE_MAX_TRIS:
-        if not on_cpu:
-            if os.environ.get("GDMT_PALLAS_SWEEP", "1") != "0":
-                # Fused Pallas sweep: the jnp matmul sweep materializes
-                # [N, 4Tp] in HBM (2.7 GB per 1.3M-ray wavefront at the
-                # 256k-lane batch size) and re-reads it for every
-                # epilogue pass — 63% of the cbox G-PT render.  The
-                # kernel keeps the term tile in VMEM; HBM traffic drops
-                # to rays-in + hits-out (~60 B/ray).
-                from . import pallas_sweep as psw
-                closest_k = psw.make_sweep_intersector(n_tris)
-                occl_k = psw.make_sweep_occluder(n_tris)
-
-                def closest(o, d, mint, maxt, geom):
-                    return closest_k(o, d, mint, maxt, geom.linC)
-
-                def occl(o, d, mint, maxt, geom):
-                    return occl_k(o, d, mint, maxt, geom.linC)
-                return add_sphere_intersections(closest, occl)
+        if on_gpu:
+            from . import pallas_sweep as psw
+            closest_k = psw.make_sweep_intersector(n_tris)
+            occl_k = psw.make_sweep_occluder(n_tris)
 
             def closest(o, d, mint, maxt, geom):
-                return isec.intersect_matmul(o, d, mint, maxt, geom.linC)
+                return closest_k(o, d, mint, maxt, geom.tris)
 
             def occl(o, d, mint, maxt, geom):
-                return isec.occluded_matmul(o, d, mint, maxt, geom.linC)
+                return occl_k(o, d, mint, maxt, geom.tris)
             return add_sphere_intersections(closest, occl)
         chunk = min(1024, max(64, n_tris))
 
@@ -105,30 +92,16 @@ def choose_intersector(settings, n_tris: int, n_clusters: int = 0):
             return isec.occluded_brute(o, d, mint, maxt, geom.tris,
                                        chunk=chunk)
         return add_sphere_intersections(closest, occl)
-    if n_clusters > 0 and not on_cpu:
-        # v7 (default): bitmask pair records + grouped member sweeps —
-        # all data-dependent selection in XLA, pure-scalar member
-        # extraction in-kernel (see pallas_trace.py v7 section).
-        # GDMT_KERNEL=v4 selects the super-worklist walk kernel for
-        # comparison; v2 (make_pallas_intersector) kept for benchmarks.
-        from . import pallas_trace as ptr
-        if os.environ.get("GDMT_KERNEL", "pairs") == "pairs":
-            closest_p = ptr.make_pair_intersector(
-                settings.cluster_window, n_clusters)
-            occl_p = ptr.make_pair_occluder(settings.cluster_window,
-                                            n_clusters)
-        else:
-            closest_p = ptr.make_pallas_mt_intersector(
-                settings.cluster_window, n_clusters)
-            occl_p = ptr.make_pallas_mt_occluder(settings.cluster_window,
-                                                 n_clusters)
+
+    if on_gpu:
+        closest_s = isec.make_bvh_intersector_soa(settings.stack_depth)
+        occl_s = isec.make_bvh_occluder_soa(settings.stack_depth)
 
         def closest(o, d, mint, maxt, geom):
-            return closest_p(o, d, mint, maxt, geom.mt_slabs,
-                             geom.cbounds)
+            return closest_s(o, d, mint, maxt, geom.tris, geom.bvh)
 
         def occl(o, d, mint, maxt, geom):
-            return occl_p(o, d, mint, maxt, geom.mt_slabs, geom.cbounds)
+            return occl_s(o, d, mint, maxt, geom.tris, geom.bvh)
         return add_sphere_intersections(closest, occl)
 
     closest_c = isec.make_cluster_intersector(settings.cluster_window)
@@ -185,28 +158,6 @@ def drain_tally(tracer):
     return total
 
 
-ONEHOT_GATHER_MAX_ROWS = 4096
-
-
-def fast_row_gather(table, idx):
-    """table[idx] for a [T, C] table and integer idx [...], but routed
-    through the MXU as one_hot(idx) @ table when the table is small and
-    we are on TPU.  XLA's TPU row gather is latency-bound (measured ~3 ms
-    for 65k rows in the render loop); the one-hot matmul is two cheap VPU
-    passes plus MXU work.  HIGHEST precision makes the 0/1 selection
-    bit-exact for f32 payloads (the bf16x3 decomposition reconstructs
-    each selected row exactly; validated in tests/test_intersect.py)."""
-    import jax
-    T = table.shape[0]
-    if jax.default_backend() == "cpu" or T > ONEHOT_GATHER_MAX_ROWS:
-        return table[idx]
-    flat = idx.reshape(-1)
-    oh = (flat[:, None] == jnp.arange(T, dtype=flat.dtype)[None, :])
-    row = jax.lax.dot(oh.astype(table.dtype), table,
-                      precision=jax.lax.Precision.HIGHEST)
-    return row.reshape(idx.shape + (table.shape[1],))
-
-
 def fill_intersection(scene, o, d, hit) -> Intersection:
     """Shading data for Hit records via ONE packed-row gather.
 
@@ -214,11 +165,10 @@ def fill_intersection(scene, o, d, hit) -> Intersection:
     prim >= SPHERE_PRIM_BASE designates an analytic sphere whose shading
     data is computed in closed form.  A single packed-row gather replaces
     the 13-gather dependent chain through indices/positions/normals/uvs/
-    per-shape tables — TPU gathers were the wavefront's dominant cost
-    (measured 2.9 ms of a 4.6 ms bounce)."""
+    per-shape tables."""
     g = scene.geom
     prim = jnp.clip(hit.prim, 0, g.tri_shade.shape[0] - 1)
-    row = fast_row_gather(g.tri_shade, prim)     # [N, 29]
+    row = g.tri_shade[prim]                      # [N, 29]
 
     u = hit.u[..., None]
     v = hit.v[..., None]
@@ -330,8 +280,7 @@ def _perturb_normal(scene, row, bsdf_id, uv, ns):
     from ..core.spectrum import luminance
     from .texture import eval_texture
 
-    mrow = fast_row_gather(scene.materials.packed,
-                           jnp.maximum(bsdf_id, 0))
+    mrow = scene.materials.packed[jnp.maximum(bsdf_id, 0)]
     mode = mrow[..., 28].astype(jnp.int32)
     ptex = jnp.maximum(mrow[..., 29].astype(jnp.int32), 0)
     scale = mrow[..., 30]
@@ -494,9 +443,8 @@ def primary_uv_jacobian(scene, W, H, d, its):
     a1 = dir_maj * (r / cos_hit)[..., None]           # [N, 3]
     a2 = jnp.cross(ng, dir_maj) * r[..., None]
 
-    row = fast_row_gather(scene.geom.tri_shade,
-                          jnp.clip(its.prim_id, 0,
-                                   scene.geom.tri_shade.shape[0] - 1))
+    row = scene.geom.tri_shade[
+        jnp.clip(its.prim_id, 0, scene.geom.tri_shade.shape[0] - 1)]
     dpdu = row[..., 23:26]
     dpdv = row[..., 26:29]
     E = m.dot(dpdu, dpdu)

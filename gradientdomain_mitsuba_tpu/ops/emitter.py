@@ -1,6 +1,6 @@
 """Emitter sampling and evaluation (NEE front door).
 
-TPU-native replacement for Scene::sampleEmitterDirect / pdfEmitterDirect /
+Replacement for Scene::sampleEmitterDirect / pdfEmitterDirect /
 evalEnvironment (src/librender/scene.cpp) + the area/constant/envmap emitter
 plugins (src/emitters/{area,constant,envmap}.cpp).  Mitsuba 0.5 picks among
 emitters uniformly; area emitters sample their surface uniformly by area
@@ -42,8 +42,7 @@ def _searchsorted_segment(cdf, lo, hi, u, iters=None):
     `iters` defaults to ceil(log2(len(cdf)))+1 — the CDF length is STATIC
     (total emitter-triangle count baked at scene build), so small scenes
     compile a 1-2 step search instead of a worst-case 24-step sequential
-    gather loop (which was ~30% of the cbox G-PT render: each step is a
-    262k-lane dynamic gather the VPU cannot fuse)."""
+    gather loop (each step is a wavefront-wide dynamic gather)."""
     lo = lo.astype(jnp.int32)
     hi = hi.astype(jnp.int32)
     if iters is None:
@@ -65,10 +64,8 @@ def sample_emitter_triangle(scene, flat, u_pos):
 
     ONE packed row gather (EmitterTable.tri_geo [sumT, 12] = p0 | e1 |
     e2 | ng) replaces the 4-gather dependent chain tri_index -> indices
-    -> positions x3 (the chain was four sequential [N,3] gather fusions
-    + relayout copies, 2.2 ms of every 4.9 ms G-PT bounce on v5e)."""
-    from .common import fast_row_gather
-    row = fast_row_gather(scene.emitters.tri_geo, flat)
+    -> positions x3."""
+    row = scene.emitters.tri_geo[flat]
     bary = warp.square_to_uniform_triangle(u_pos)
     pos = (row[..., 0:3] + bary[..., 0:1] * row[..., 3:6] +
            bary[..., 1:2] * row[..., 6:9])
@@ -125,8 +122,7 @@ def sample_direct(scene, n_area: int, env_kind: int, p_ref, u_sel, u_pos,
     area = em.total_area[e]
     pdf_area = 1.0 / jnp.maximum(area, 1e-12)
     pdf_sa = pick_pdf * pdf_area * dist2 / jnp.maximum(cos_l, 1e-9)
-    from .common import fast_row_gather
-    rad = fast_row_gather(em.radiance, e)
+    rad = em.radiance[e]
     valid_area = cos_l > 1e-6
 
     pdf_area_full = pick_pdf * pdf_area

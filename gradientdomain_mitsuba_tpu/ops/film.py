@@ -1,6 +1,6 @@
 """Film accumulation: reconstruction-filtered scatter-add splatting.
 
-TPU-native replacement for ImageBlock::put + Film::put
+Replacement for ImageBlock::put + Film::put
 (src/librender/imageblock.cpp, film.cpp, src/rfilters/*.cpp).  Instead of
 per-tile bordered blocks merged under a mutex, samples scatter-add into
 full-resolution framebuffers with a weight channel; XLA lowers .at[].add to
@@ -97,9 +97,9 @@ def develop(fb, wb):
 # ---------------------------------------------------------------------------
 # Grid-aligned splatting: when every sample belongs to a known pixel (the
 # wavefront renders one sample per pixel in row-major order), filtering
-# becomes a small set of DENSE shifted adds — no scatter at all.  Scatter
-# into the film was the measured hot spot on TPU (colliding indices
-# serialize); these paths replace it for the primary film and the gradient
+# becomes a small set of DENSE shifted adds — no scatter at all (colliding
+# scatter indices serialize); these paths replace it for the primary film
+# and the gradient
 # buffers.  pos-based scatter splatting above remains for the BDPT light
 # image, whose splat positions are arbitrary.
 # ---------------------------------------------------------------------------

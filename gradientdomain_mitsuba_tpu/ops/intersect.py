@@ -1,18 +1,26 @@
 """Ray-scene intersection kernels.
 
-TPU-native replacement for Mitsuba's kd-tree traversal + Wald TriAccel hot
-path (src/librender/skdtree.cpp, include/mitsuba/render/triaccel.h).  Three
-device paths, one contract:
+Replacement for Mitsuba's kd-tree traversal + Wald TriAccel hot
+path (src/librender/skdtree.cpp, include/mitsuba/render/triaccel.h).  Plain
+jnp/lax paths, one contract (ops/common.choose_intersector picks one per
+platform and scene size; ops/pallas_sweep.py holds the GPU's small-scene
+kernel):
 
   - intersect_brute / occluded_brute: every ray against every triangle,
-    scanned over triangle chunks (exact reference for tests; also the
-    fastest path for small scenes where the whole tri soup fits in VMEM
-    and the test vectorizes perfectly on the VPU).
-  - intersect_bvh / occluded_bvh: per-ray short-stack BVH traversal under
-    vmap + lax.while_loop.
+    scanned over triangle chunks (the exact reference for tests; the
+    CPU's small-scene path).
+  - make_bvh_intersector_soa / make_bvh_occluder_soa: per-lane
+    short-stack BVH traversal of the whole wavefront in lockstep (the
+    GPU's large-scene path).
+  - make_bvh_intersector / make_bvh_occluder: the same walk per ray
+    under vmap + lax.while_loop.
+  - intersect_matmul / occluded_matmul: linear Moeller-Trumbore as one
+    matrix product.
+  - make_cluster_intersector / make_cluster_occluder: two-level
+    cluster traversal (the CPU's large-scene path).
 
 Triangles are stored REORDERED by BVH leaf ranges (SoA v0/e1/e2), so leaf
-prims are contiguous in HBM.
+prims are contiguous in device memory.
 """
 from __future__ import annotations
 
@@ -142,10 +150,9 @@ def make_bvh_intersector_soa(stack_depth: int):
     stack-pop per while iteration, all lanes in lockstep with masks.
 
     Written WITHOUT vmap: per-lane stacks live in a [N, depth] array and
-    node fetches are plain [N]-index gathers — the vmap(while_loop)
-    formulation made XLA materialize rays-x-tris broadcasts on TPU (OOM at
-    compile).  Lanes that finish idle until the last lane empties its
-    stack; rays in a wavefront are image-coherent so divergence stays low.
+    node fetches are plain [N]-index gathers.  Lanes that finish idle
+    until the last lane empties its stack; rays in a wavefront are
+    image-coherent so divergence stays low.
     """
 
     def intersect(o, d, mint, maxt, tris: TriSoup, bvh: BVHArrays):
@@ -412,7 +419,7 @@ def make_bvh_occluder(stack_depth: int):
 
 
 # ---------------------------------------------------------------------------
-# Linear-MT ("matmul traversal"): Moeller-Trumbore as ONE MXU matmul
+# Linear-MT ("matmul traversal"): Moeller-Trumbore as ONE matrix product
 # ---------------------------------------------------------------------------
 #
 # The four MT determinants are LINEAR in the 10 ray features
@@ -424,14 +431,13 @@ def make_bvh_occluder(stack_depth: int):
 #   t_num = e2.((o-v0) x e1)   = (o-v0).n = o.n - v0.n
 #
 # so intersecting R rays against ALL T triangles is one [R,10] @ [10,4T]
-# f32 matmul (MXU work, essentially free) plus a short VPU epilogue of
-# sign-fixed comparisons.  This is this framework's TriAccel: like the
-# reference's Wald projection test (include/mitsuba/render/triaccel.h)
-# it trades per-ray-per-triangle arithmetic for a per-triangle
-# precomputation, but shaped for a systolic array instead of SSE.  The
-# small-scene replacement for intersect_brute on TPU (the brute per-pair
-# Moeller-Trumbore is ~50 VPU ops/pair; this is ~15, with all the
-# multiply-accumulate work moved off the VPU entirely).
+# f32 matmul at HIGHEST precision plus a short epilogue of comparisons.
+# Like the reference's Wald projection test (include/mitsuba/render/
+# triaccel.h) it trades per-ray-per-triangle arithmetic for a
+# per-triangle precomputation.  The differences o.n - v0.n cancel for
+# rays near a triangle's plane, so t is less exact than the brute form's.
+# It writes the whole [R, 4T] term matrix to device memory; it is kept as
+# a plain form to measure the sweep kernel against.
 
 
 def build_linear_mt(v0, e1, e2) -> np.ndarray:
@@ -516,13 +522,13 @@ def occluded_matmul(o, d, mint, maxt, linC):
 
 def make_cluster_intersector(window: int):
     """Two-level clustered closest-hit: dense [N, K] ray-vs-cluster-AABB
-    tests (pure VPU), per-ray nearest-first cluster ordering, then a
+    tests, per-ray nearest-first cluster ordering, then a
     while-loop where every lane fetches its own cluster's CONTIGUOUS
     triangle window (one blocked gather) and tests it densely.  Windows
     may overlap neighboring clusters' prims — testing extra real
     triangles is harmless for correctness and keeps the gather shape
-    static.  This is the TPU answer to per-lane BVH pointer chasing:
-    measured ~40x faster than lockstep stack traversal on v5e.
+    static.  Its [N, K] slab tests and argsort grow with the cluster
+    count, so it suits the CPU's modest wavefronts, not 1M-lane ones.
     """
 
     def intersect(o, d, mint, maxt, tris: TriSoup, clusters: ClusterArrays):
@@ -626,9 +632,9 @@ def make_cluster_occluder(window: int):
 # Analytic spheres (src/shapes/sphere.cpp): second primitive type, tested
 # densely beside the triangle traversal and merged by closest-t
 # (ops/common.add_sphere_intersections).  Scene sphere counts are tiny, so
-# the [N, S] quadric solve is negligible VPU work with exact normals —
+# the [N, S] quadric solve is negligible work with exact normals —
 # round-2 item: caustic/dielectric validation on true quadrics instead of
-# tessellations (VERDICT r1 weak #8).
+# tessellations.
 # ---------------------------------------------------------------------------
 
 def intersect_spheres(o, d, mint, maxt, centers, radii):

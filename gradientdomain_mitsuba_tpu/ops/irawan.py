@@ -2,7 +2,7 @@
 Irawan-Marschner woven-cloth model, "Specular Reflection from Woven
 Cloth", TOG 2012).
 
-TPU-native re-design, NOT an equation-level port:
+A re-design, NOT an equation-level port:
 
 - weave structure is faithful: a tiled pattern grid assigns each uv
   cell to a warp or weft yarn SEGMENT; highlights follow the yarn
@@ -146,8 +146,7 @@ def resolve_features(scene, mid, uv, bary):
     on SubPath (models/bdpt.py), so the specular lobe survives there
     too; only a caller that passes cloth=None falls back to the diffuse
     term."""
-    from .common import fast_row_gather
-    row = fast_row_gather(scene.materials.packed, mid)
+    row = scene.materials.packed[mid]
     pid = row[..., 18].astype(jnp.int32)          # dist column
     rep_u = jnp.maximum(row[..., 11], 1e-6)       # alpha column
     rep_v = jnp.maximum(row[..., 21], 1e-6)       # alpha_v column

@@ -1,7 +1,7 @@
 """Device-side participating-media ops: homogeneous free-flight sampling,
 transmittance, and phase functions.
 
-TPU-native replacement for Medium::sampleDistance/evalTransmittance and
+Replacement for Medium::sampleDistance/evalTransmittance and
 PhaseFunction::{sample,eval,pdf} (src/medium/homogeneous.cpp,
 src/phase/{isotropic,hg,rayleigh}.cpp), as branch-free SoA kernels over
 medium-id lanes.  Lanes with mid < 0 are vacuum: no scatter, unit
@@ -94,7 +94,7 @@ def _rayleigh_pdf(cos_theta):
 # --- SGGX microflakes (fiber) ----------------------------------------------
 # S = w w^T sigma^2 + (I - w w^T): eigenvalues (sigma^2, 1, 1) in the
 # fiber frame, so S v = v + (sigma^2 - 1)(w.v) w and every quadratic
-# form is a closed-form dot product — the TPU-native replacement for
+# form is a closed-form dot product — the Replacement for
 # microflake.cpp's Gaussian distribution (fitted series + rejection
 # sampling).  Specular (mirror) flakes: phase = D(h) / (4 sigma(wi)).
 
@@ -237,7 +237,8 @@ def density_at(media, mid, p):
     volume frame return 0 (gridvolume.cpp zero-extension)."""
     idx = jnp.clip(mid, 0, media.het.shape[0] - 1)
     w2g = media.world_to_grid[idx]                       # [N, 4, 4]
-    q = (jnp.einsum("nij,nj->ni", w2g[:, :3, :3], p) + w2g[:, :3, 3])
+    q = (jnp.einsum("nij,nj->ni", w2g[:, :3, :3], p,
+                    precision=jax.lax.Precision.HIGHEST) + w2g[:, :3, 3])
     res = media.grid_res[idx]                            # [N, 3] (nx,ny,nz)
     off = media.grid_offset[idx]
     nx = res[:, 0]
@@ -292,7 +293,8 @@ def flake_at(media, mid, p):
     off = media.orient_offset[idx]
     has = off >= 0
     w2g = media.orient_w2g[idx]
-    q = (jnp.einsum("nij,nj->ni", w2g[:, :3, :3], p) + w2g[:, :3, 3])
+    q = (jnp.einsum("nij,nj->ni", w2g[:, :3, :3], p,
+                    precision=jax.lax.Precision.HIGHEST) + w2g[:, :3, 3])
     res = media.orient_res[idx]
     nx, ny, nz = res[:, 0], res[:, 1], res[:, 2]
     inside = jnp.all((q >= 0.0) & (q <= 1.0), -1)
@@ -331,7 +333,8 @@ def flake_at(media, mid, p):
     # (medium toWorld @ volume toWorld), then normalize — gridvolume
     # lookupVector semantics (src/volume/gridvolume.cpp): without this,
     # any rotated toWorld yields wrong flake orientations
-    v = jnp.einsum("nij,nj->ni", media.orient_l2w[idx], v)
+    v = jnp.einsum("nij,nj->ni", media.orient_l2w[idx], v,
+                   precision=jax.lax.Precision.HIGHEST)
     norm = jnp.sqrt(jnp.maximum(m.squared_length(v), 0.0))
     ok = has & inside & (norm > 1e-6)
     axis = jnp.where(ok[..., None], v / jnp.maximum(norm, 1e-12)[..., None],

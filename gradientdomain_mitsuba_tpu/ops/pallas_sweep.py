@@ -1,41 +1,27 @@
-"""Fused Pallas linear-MT sweep for small scenes (the headline hot path).
+"""Fused small-scene triangle sweep: a Pallas kernel on the Triton route.
 
-TPU-native replacement for the same role TriAccel plays in Mitsuba's
-small-scene traversal (src/librender/skdtree.cpp leaf tests, triaccel.h):
-closest-hit / any-hit of a ray wavefront against the WHOLE triangle soup.
+Closest hit and any hit of a ray wavefront against the WHOLE triangle
+soup of a small scene (the role TriAccel's leaf tests play in Mitsuba's
+small-scene traversal, src/librender/skdtree.cpp, triaccel.h).
 
-The jnp formulation (ops/intersect.py intersect_matmul) lowers to an XLA
-program that materializes the [N, 4T] linear-MT term matrix in HBM and
-re-reads it for every epilogue pass — measured 1.3 ms per 64k-ray
-traversal on v5e for a 36-triangle scene whose roofline is ~30 us.  This
-kernel fuses the feature build, the MXU coefficient matmul, and the whole
-hit-selection epilogue into one VMEM-resident pass:
+The plain forms write [N, T]-sized intermediates to device memory:
+ops/intersect.intersect_matmul its [N, 4T] linear-MT term matrix,
+intersect_brute its per-chunk Moeller-Trumbore terms.  This kernel keeps
+every term in registers:
 
-  - rays ride TRANSPOSED [8, N] (rows o.xyz d.xyz mint maxt) so every
-    per-ray quantity is a full-lane [1, TILE] row and the per-triangle
-    term tiles are [Ct, TILE] (triangles on sublanes, rays on lanes);
-  - the coefficient matrix is pre-chunked host-side into
-    [n_chunks, 4*Ct, 16] (det | u_num | v_num | t_num row blocks per
-    chunk, feature dim padded 10 -> 16) so each chunk is ONE
-    [4Ct, 16] @ [16, TILE] MXU dot whose [4Ct, TILE] output never
-    leaves VMEM;
-  - hit selection (divide-first Moeller-Trumbore test, sublane min,
-    first-winner index + barycentrics) happens on the same tile;
-    chunks merge through a running (t, u, v, prim) best.
+  - one program owns a block of BLOCK_R rays;
+  - a loop walks the soup in chunks of CHUNK_T triangles, loading the 9
+    per-triangle rows (v0, e1, e2) of each chunk; the whole table is at
+    most 2048 x 9 f32, so it stays in L2;
+  - the Moeller-Trumbore test is intersect_brute's arithmetic (ops/
+    intersect._mt), as explicit f32 multiply-adds on a [BLOCK_R, CHUNK_T]
+    tile: no matrix unit, so no TF32;
+  - the running closest hit stays in registers, with intersect_brute's
+    tie rule (the lowest triangle index among equal t wins);
+  - the any-hit loop ends once every live ray of the block is occluded.
 
-Per 64k rays the HBM traffic is ~2.5 MB total (rays in, hits out,
-coefficients once) instead of >150 MB.  Padding triangles have all-zero
-columns => det = 0 => u = 0 * inf = NaN fails every comparison (closest)
-and ad = 0 fails ok (any-hit), exactly like the jnp sweeps.
-
-MEASURED (v5e, round 3): at 64k-lane batches the win is hidden by per-op
-dispatch overhead, but at the 256k-lane batches GDMT_LANES now defaults
-to, the headline cbox G-PT render drops 1.33 s -> 0.73 s (49.6 -> 90.3
-Mrays/s measured) when this kernel replaces the jnp matmul sweep — wired
-into choose_intersector for small scenes on TPU (GDMT_PALLAS_SWEEP=0
-restores the jnp sweep).  Correctness is pinned by the interpret-mode
-test in tests/test_pallas.py plus the whole default suite running both
-paths (CPU uses the jnp sweep; TPU this one).
+Device-memory traffic is the rays in and (t, u, v, prim) out: about 48 B
+per ray.  `interpret=True` runs the same kernel on the CPU for tests.
 """
 from __future__ import annotations
 
@@ -45,204 +31,191 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
-from .intersect import Hit
+from .intersect import Hit, TriSoup
 
 F32_MAX = np.float32(3.0e38)
-TILE = 2048        # max rays per grid step (lane-dim blocks of [8, N])
-CHUNK_T = 512      # triangles per MXU dot
-KDIM = 16          # feature rows, 10 real + 6 zero pad (sublane granule)
-F_TILE_BYTES = 4 << 20  # cap on the [4*Ct, tile] f32 MXU output tile:
-#   with the epilogue temps (~4 more [Ct, tile] arrays) this keeps the
-#   kernel inside the ~16 MB v5e VMEM budget at every soup size
-#   (ADVICE r3: Ct=512 x tile=2048 was 16.8 MB for F alone)
-
-
-def _lane_tile(Ct: int) -> int:
-    """Rays per grid step such that the MXU output tile stays under
-    F_TILE_BYTES (4*Ct*tile*4 bytes), floored to the 128-lane granule,
-    clamped to [512, TILE]."""
-    t = F_TILE_BYTES // (16 * max(Ct, 1))
-    return int(max(512, min(TILE, (t // 128) * 128)))
+BLOCK_R = 128      # rays per program
+CHUNK_T = 16       # triangles per inner-loop step
+NUM_WARPS = 4
+NUM_STAGES = 1
+N_COEF = 9         # per-triangle rows: v0, e1, e2
+_BIG = 2 ** 30
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def _feats(rays_ref):
-    """[KDIM, TILE] feature tile from the [8, TILE] ray block: rows
-    cross(o,d).xyz | d.xyz | o.xyz | 1 | zeros — matches the column
-    order of ops/intersect.build_linear_mt."""
-    o = rays_ref[0:3, :]
-    d = rays_ref[3:6, :]
-    ox, oy, oz = o[0:1], o[1:2], o[2:3]
-    dx, dy, dz = d[0:1], d[1:2], d[2:3]
-    cx = oy * dz - oz * dy
-    cy = oz * dx - ox * dz
-    cz = ox * dy - oy * dx
-    one = jnp.ones_like(ox)
-    zero = jnp.zeros((KDIM - 10,) + ox.shape[1:], ox.dtype)
-    return jnp.concatenate(
-        [cx, cy, cz, dx, dy, dz, ox, oy, oz, one, zero], axis=0)
+def _tri_table(tris: TriSoup, n_tris: int, chunk: int):
+    """Triangle soup -> (flat chunk-major [n_chunks, 9, chunk] rows,
+    slot ids [Ts]).
+
+    The sweep visits only the real triangles: the scene's padded layout
+    scatters them over Tp >= n_tris slots, and padding slots carry
+    orig_id = -1.  Empty table slots (-1) are all-zero triangles, whose
+    det = 0 never hits."""
+    Tp = tris.v0.shape[0]
+    Ts = _round_up(max(min(n_tris, Tp), 1), chunk)
+    (slot,) = jnp.nonzero(tris.orig_id >= 0, size=Ts, fill_value=-1)
+    slot = slot.astype(jnp.int32)
+    rows = jnp.concatenate([tris.v0, tris.e1, tris.e2], axis=1)  # [Tp, 9]
+    tab = jnp.where(slot[:, None] >= 0, rows[jnp.maximum(slot, 0)], 0.0)
+    tab = tab.T.reshape(N_COEF, Ts // chunk, chunk).transpose(1, 0, 2)
+    return tab.reshape(-1).astype(jnp.float32), slot
 
 
-def _sweep_kernel(n_chunks, Ct, a_ref, rays_ref, out_ref):
-    f = _feats(rays_ref)
-    mint = rays_ref[6:7, :]
-    maxt = rays_ref[7:8, :]
+def _chunk_mt(tab_ref, c, chunk, ray, mint, maxt):
+    """intersect_brute's Moeller-Trumbore (ops/intersect._mt) for the
+    ray block x triangle chunk c: [BLOCK_R, chunk] (t, u, v, hit)."""
+    ox, oy, oz, dx, dy, dz = ray
+    base = c * (N_COEF * chunk)
 
-    best_t = jnp.full(mint.shape, F32_MAX)
-    best_u = jnp.zeros_like(mint)
-    best_v = jnp.zeros_like(mint)
-    best_j = jnp.full(mint.shape, jnp.float32(-1.0))
-    big = jnp.int32(2 ** 30)
+    def row(k):
+        return tab_ref[pl.ds(base + k * chunk, chunk)][None, :]
 
-    for c in range(n_chunks):
-        F = jax.lax.dot(a_ref[c], f, precision=jax.lax.Precision.HIGHEST,
-                        preferred_element_type=jnp.float32)
-        d_inv = 1.0 / F[0:Ct]
-        u = F[Ct:2 * Ct] * d_inv
-        v = F[2 * Ct:3 * Ct] * d_inv
-        t = F[3 * Ct:4 * Ct] * d_inv
-        ok = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) &
-              (t > mint) & (t < maxt))
+    v0x, v0y, v0z = row(0), row(1), row(2)
+    e1x, e1y, e1z = row(3), row(4), row(5)
+    e2x, e2y, e2z = row(6), row(7), row(8)
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    ok_det = jnp.abs(det) > 1e-12
+    inv_det = jnp.where(ok_det, 1.0 / det, 0.0)
+    tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    hit = (ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) &
+           (t > mint[:, None]) & (t < maxt[:, None]))
+    return t, u, v, hit
+
+
+def _load_rays(ray_refs):
+    vals = [r[...] for r in ray_refs]
+    return tuple(a[:, None] for a in vals[:6]), vals[6], vals[7]
+
+
+def _closest_kernel(n_chunks, chunk, *refs):
+    ray_refs, tab_ref = refs[:8], refs[8]
+    t_ref, u_ref, v_ref, j_ref = refs[9:]
+    ray, mint, maxt = _load_rays(ray_refs)
+    nr = mint.shape[0]
+
+    def body(c, carry):
+        best_t, best_u, best_v, best_j = carry
+        t, u, v, ok = _chunk_mt(tab_ref, c, chunk, ray, mint, maxt)
         tt = jnp.where(ok, t, F32_MAX)
-        tm = jnp.min(tt, axis=0, keepdims=True)                 # [1, TILE]
-        iota = jax.lax.broadcasted_iota(jnp.int32, tt.shape, 0) + c * Ct
-        sel = ok & (tt == tm)
-        j = jnp.min(jnp.where(sel, iota, big), axis=0, keepdims=True)
-        first = sel & (iota == j)
-        us = jnp.sum(jnp.where(first, u, 0.0), axis=0, keepdims=True)
-        vs = jnp.sum(jnp.where(first, v, 0.0), axis=0, keepdims=True)
+        tm = jnp.min(tt, axis=1)
+        iota = jax.lax.broadcasted_iota(jnp.int32, (nr, chunk), 1) + \
+            c * chunk
+        j = jnp.min(jnp.where(ok & (tt == tm[:, None]), iota, _BIG), axis=1)
+        first = iota == j[:, None]
+        us = jnp.sum(jnp.where(first, u, 0.0), axis=1)
+        vs = jnp.sum(jnp.where(first, v, 0.0), axis=1)
         better = tm < best_t
-        best_t = jnp.where(better, tm, best_t)
-        best_u = jnp.where(better, us, best_u)
-        best_v = jnp.where(better, vs, best_v)
-        best_j = jnp.where(better, j.astype(jnp.float32), best_j)
+        return (jnp.where(better, tm, best_t), jnp.where(better, us, best_u),
+                jnp.where(better, vs, best_v), jnp.where(better, j, best_j))
 
-    out_ref[0:1, :] = best_t
-    out_ref[1:2, :] = best_u
-    out_ref[2:3, :] = best_v
-    out_ref[3:4, :] = best_j
-
-
-def _occl_kernel(n_chunks, Ct, a_ref, rays_ref, out_ref):
-    f = _feats(rays_ref)
-    mint = rays_ref[6:7, :]
-    maxt = rays_ref[7:8, :]
-    any_hit = jnp.zeros(mint.shape, jnp.float32)
-    for c in range(n_chunks):
-        F = jax.lax.dot(a_ref[c], f, precision=jax.lax.Precision.HIGHEST,
-                        preferred_element_type=jnp.float32)
-        det = F[0:Ct]
-        s = jnp.sign(det)
-        ad = det * s
-        su = F[Ct:2 * Ct] * s
-        sv = F[2 * Ct:3 * Ct] * s
-        st = F[3 * Ct:4 * Ct] * s
-        ok = ((su >= 0.0) & (sv >= 0.0) & (su + sv <= ad) & (ad > 0.0) &
-              (st > mint * ad) & (st < maxt * ad))
-        any_hit = jnp.maximum(any_hit,
-                              jnp.max(ok.astype(jnp.float32), axis=0,
-                                      keepdims=True))
-    out_ref[0:1, :] = any_hit
+    zero = jnp.zeros_like(mint)
+    init = (zero + F32_MAX, zero, zero, jnp.full(mint.shape, -1, jnp.int32))
+    best_t, best_u, best_v, best_j = jax.lax.fori_loop(0, n_chunks, body,
+                                                       init)
+    t_ref[...] = best_t
+    u_ref[...] = best_u
+    v_ref[...] = best_v
+    j_ref[...] = best_j
 
 
-def _prep_coeffs(linC, Tp, Ct):
-    """linC [10, 4T] -> [n_chunks, 4*Ct, KDIM] chunked row blocks.
-    Tp may be SMALLER than linC's own column padding (the scene builder
-    pads the soup to 128; the epilogue's VPU cost is linear in Tp, so
-    the kernel trims to the 8-row granule above the real count —
-    trimmed padding rows are all-zero columns that never hit anyway)."""
-    T = linC.shape[1] // 4
-    blocks = jnp.stack([linC[:, 0:T], linC[:, T:2 * T],
-                        linC[:, 2 * T:3 * T], linC[:, 3 * T:]], 0)
-    if Tp > T:
-        blocks = jnp.concatenate(
-            [blocks, jnp.zeros((4, 10, Tp - T), linC.dtype)], axis=2)
-    elif Tp < T:
-        blocks = blocks[:, :, :Tp]
-    a = jnp.transpose(blocks, (0, 2, 1))                    # [4, Tp, 10]
-    a = jnp.concatenate([a, jnp.zeros((4, Tp, KDIM - 10), a.dtype)], 2)
-    nch = Tp // Ct
-    a = a.reshape(4, nch, Ct, KDIM).transpose(1, 0, 2, 3)
-    return a.reshape(nch, 4 * Ct, KDIM)
+def _occluded_kernel(n_chunks, chunk, *refs):
+    ray_refs, tab_ref, occ_ref = refs[:8], refs[8], refs[9]
+    ray, mint, maxt = _load_rays(ray_refs)
+    # dead lanes (maxt <= mint, e.g. the maxt = -1 of finished paths)
+    # count as done, so they do not hold the block in the loop
+    dead = (maxt <= mint).astype(jnp.int32)
+
+    def cond(carry):
+        c, occ = carry
+        return (c < n_chunks) & (jnp.min(jnp.maximum(occ, dead)) == 0)
+
+    def body(carry):
+        c, occ = carry
+        _, _, _, ok = _chunk_mt(tab_ref, c, chunk, ray, mint, maxt)
+        hit = jnp.max(ok.astype(jnp.int32), axis=1)
+        return c + 1, jnp.maximum(occ, hit)
+
+    _, occ = jax.lax.while_loop(cond, body,
+                                (jnp.int32(0), jnp.zeros_like(dead)))
+    occ_ref[...] = occ
+
+
+def _call(kernel, out_shape, n_chunks, tab, rays, Np, interpret, name):
+    ray_spec = pl.BlockSpec((BLOCK_R,), lambda i: (i,))
+    return pl.pallas_call(
+        functools.partial(kernel, n_chunks, CHUNK_T),
+        out_shape=out_shape,
+        grid=(Np // BLOCK_R,),
+        in_specs=[ray_spec] * 8 + [pl.no_block_spec],
+        out_specs=[ray_spec] * len(out_shape),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=NUM_WARPS,
+                                                 num_stages=NUM_STAGES),
+        interpret=interpret,
+        name=name,
+    )(*rays, tab)
 
 
 def _pack_rays(o, d, mint, maxt, Np):
-    N = o.shape[0]
-    rays = jnp.concatenate(
-        [o.T, d.T, mint[None], maxt[None]], axis=0).astype(jnp.float32)
-    if Np > N:
-        # padding rays: d = 1s, maxt = -1 (miss everything cheaply)
-        filler = jnp.concatenate(
-            [jnp.zeros((3, Np - N)), jnp.ones((3, Np - N)),
-             jnp.zeros((1, Np - N)), jnp.full((1, Np - N), -1.0)], axis=0)
-        rays = jnp.concatenate([rays, filler.astype(jnp.float32)], axis=1)
-    return rays
+    """Eight [Np] rows; padding rays have maxt = -1 (never hit)."""
+    pad = Np - o.shape[0]
+    cols = [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], mint, maxt]
+    fills = [0.0, 0.0, 0.0, 1.0, 1.0, 1.0, 0.0, -1.0]
+    return [jnp.pad(c.astype(jnp.float32), (0, pad), constant_values=f)
+            for c, f in zip(cols, fills)]
 
 
-def _sweep_call(kernel, n_out_rows, n_chunks, Ct, a, rays, Np):
-    tile = _lane_tile(Ct)
-    grid = Np // tile
-    return pl.pallas_call(
-        functools.partial(kernel, n_chunks, Ct),
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec((n_chunks, 4 * Ct, KDIM), lambda i: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((n_out_rows, tile), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n_out_rows, Np), jnp.float32),
-    )(a, rays)
+def make_sweep_intersector(n_tris: int, interpret: bool = False):
+    """Closest hit over the whole soup.  Signature matches
+    intersect_brute: (o, d, mint, maxt, tris) -> Hit, prim in the soup's
+    slot order."""
 
-
-def _chunking(n_tris, linC):
-    """Chunk sizes from the REAL triangle count (8-row granule): the
-    scene builder pads linC to 128 columns per block, but the epilogue's
-    VPU cost is linear in the padded count, so trim to the real soup
-    (capped by linC's own static width)."""
-    T = min(linC.shape[1] // 4, _round_up(max(n_tris, 8), 64))
-    Ct = min(CHUNK_T, T)
-    Tp = _round_up(T, Ct)
-    return Tp // Ct, Ct, Tp
-
-
-def make_sweep_intersector(n_tris: int):
-    """Closest-hit over the whole soup via the fused Pallas sweep.
-    Signature matches intersect_matmul: (o, d, mint, maxt, linC) -> Hit."""
-
-    def closest(o, d, mint, maxt, linC):
-        n_chunks, Ct, Tp = _chunking(n_tris, linC)
+    def closest(o, d, mint, maxt, tris):
+        tab, slot = _tri_table(tris, n_tris, CHUNK_T)
         N = o.shape[0]
-        Np = _round_up(N, _lane_tile(Ct))
+        Np = _round_up(max(N, 1), BLOCK_R)
         rays = _pack_rays(o, d, mint, maxt, Np)
-        a = _prep_coeffs(linC, Tp, Ct)
-        out = _sweep_call(_sweep_kernel, 8, n_chunks, Ct, a, rays, Np)
-        t = out[0, :N]
+        f32 = jax.ShapeDtypeStruct((Np,), jnp.float32)
+        t, u, v, j = _call(
+            _closest_kernel,
+            [f32, f32, f32, jax.ShapeDtypeStruct((Np,), jnp.int32)],
+            slot.shape[0] // CHUNK_T, tab, rays, Np, interpret,
+            "sweep_closest")
+        t, u, v, j = t[:N], u[:N], v[:N], j[:N]
         valid = t < F32_MAX
-        prim = out[3, :N].astype(jnp.int32)
-        return Hit(t=t, u=out[1, :N], v=out[2, :N],
-                   prim=jnp.where(valid, prim, -1), valid=valid)
+        prim = slot[jnp.clip(j, 0, slot.shape[0] - 1)]
+        return Hit(t=t, u=u, v=v, prim=jnp.where(valid, prim, -1),
+                   valid=valid)
 
     return closest
 
 
-def make_sweep_occluder(n_tris: int):
-    """Any-hit variant (sign-fixed test, no divisions)."""
+def make_sweep_occluder(n_tris: int, interpret: bool = False):
+    """Any hit over the whole soup: (o, d, mint, maxt, tris) -> bool [N]."""
 
-    def occluded(o, d, mint, maxt, linC):
-        n_chunks, Ct, Tp = _chunking(n_tris, linC)
+    def occluded(o, d, mint, maxt, tris):
+        tab, slot = _tri_table(tris, n_tris, CHUNK_T)
         N = o.shape[0]
-        Np = _round_up(N, _lane_tile(Ct))
+        Np = _round_up(max(N, 1), BLOCK_R)
         rays = _pack_rays(o, d, mint, maxt, Np)
-        a = _prep_coeffs(linC, Tp, Ct)
-        out = _sweep_call(_occl_kernel, 8, n_chunks, Ct, a, rays, Np)
-        return out[0, :N] > 0.0
+        (occ,) = _call(
+            _occluded_kernel, [jax.ShapeDtypeStruct((Np,), jnp.int32)],
+            slot.shape[0] // CHUNK_T, tab, rays, Np, interpret,
+            "sweep_occluded")
+        return occ[:N] > 0
 
     return occluded

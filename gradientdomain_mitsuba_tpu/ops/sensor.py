@@ -1,7 +1,7 @@
 """Sensor (camera) sampling: perspective, thinlens, orthographic,
 telecentric, spherical, radiancemeter, fluencemeter, perspective_rdist.
 
-TPU-native replacement for the sensor plugin family
+Replacement for the sensor plugin family
 (src/sensors/{perspective,thinlens,orthographic,telecentric,spherical,
 radiancemeter,fluencemeter,perspective_rdist}.cpp).  Positions are in CONTINUOUS film
 coordinates (pixels); matrices follow Mitsuba's cameraToSample

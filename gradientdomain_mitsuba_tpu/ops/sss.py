@@ -1,6 +1,6 @@
 """Classical dipole BSSRDF (Jensen et al. 2001) — device-side pieces.
 
-TPU-native replacement for the reference's `dipole` subsurface plugin
+Replacement for the reference's `dipole` subsurface plugin
 (src/subsurface/dipole.cpp + the irradiance octree in
 src/subsurface/irrtree.cpp).  The reference preprocesses blue-noise
 irradiance samples into a hierarchical octree and answers each Lo query
@@ -12,8 +12,9 @@ through a `lax.scan`:
                                                     no tree, no bias knob)
   Lo(x, w) = (1/pi) * Ft(eta, cos_o) * Mo(x)
 
-The pairwise squared distances ride one [N,3]x[3,P] matmul per chunk
-(MXU work); Rd is a handful of VPU transcendentals fused by XLA into the
+The pairwise squared distances ride one [N,3]x[3,P] matmul per chunk,
+at full f32 precision (q.q - 2 q.p + p.p cancels at scene
+coordinates); Rd is a handful of transcendentals fused by XLA into the
 reduction.  At the default 2048 cache points this is far below the cost
 of one path-tracing bounce, and it is exact — the octree's `quality`
 cutoff knob has no analog here because none is needed.
@@ -35,6 +36,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core import math as m
+
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class DipoleCoeffs(NamedTuple):
@@ -177,7 +180,7 @@ def eval_mo(cache, coeffs: DipoleCoeffs, q_p, q_row, chunk: int = 256):
 
     def body(acc, args):
         cp, ce, crow = args
-        dot = q_p @ cp.T                               # [N, chunk]  (MXU)
+        dot = jnp.matmul(q_p, cp.T, precision=HIGHEST)  # [N, chunk]
         r2 = jnp.maximum(q2[:, None] - 2.0 * dot +
                          jnp.sum(cp * cp, -1)[None, :], 0.0)
         same = (crow[None, :] == q_row[:, None])
@@ -185,7 +188,7 @@ def eval_mo(cache, coeffs: DipoleCoeffs, q_p, q_row, chunk: int = 256):
         val = rd(r2, s_tr[:, None, :], zr[:, None, :], zv[:, None, :],
                  ap[:, None, :])
         val = jnp.where(same[..., None], val, 0.0)
-        acc = acc + jnp.einsum("nck,ck->nk", val, ce)
+        acc = acc + jnp.einsum("nck,ck->nk", val, ce, precision=HIGHEST)
         return acc, None
 
     mo0 = jnp.zeros((q_p.shape[0], 3))

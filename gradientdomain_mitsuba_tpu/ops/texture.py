@@ -1,6 +1,6 @@
 """Texture evaluation: bitmap (trilinear mipmapped, wrap) + checkerboard.
 
-TPU-native replacement for Mitsuba's texture plugins + mipmap machinery
+Replacement for Mitsuba's texture plugins + mipmap machinery
 (src/textures/{bitmap,checkerboard}.cpp, include/mitsuba/render/mipmap.h):
 all bitmaps live in one padded atlas stack [T, Hmax, Wmax, 3] in HBM with
 the mip pyramid packed beside level 0 (levels >= 1 stacked vertically at
@@ -386,8 +386,7 @@ def resolve_opacity(scene, mid, uv, bary=None):
     """Mask-wrapper opacity with texture override where bound (luminance
     of the opacity texture, mask.cpp semantics)."""
     from ..core.spectrum import luminance
-    from .common import fast_row_gather
-    row = fast_row_gather(scene.materials.packed, mid)
+    row = scene.materials.packed[mid]
     op = row[..., 22]
     tex_id = row[..., 23].astype(jnp.int32)
     tex_val = eval_texture(scene.textures, tex_id, uv, bary=bary)
@@ -396,8 +395,7 @@ def resolve_opacity(scene, mid, uv, bary=None):
 
 def resolve_albedo(scene, mid, uv, uv_footprint=None, bary=None):
     """Material reflectance with texture override where bound."""
-    from .common import fast_row_gather
-    row = fast_row_gather(scene.materials.packed, mid)
+    row = scene.materials.packed[mid]
     refl = row[..., 2:5]
     tex_id = row[..., 20].astype(jnp.int32)
     has_tex = tex_id >= 0
@@ -410,8 +408,7 @@ def resolve_blend_weight(scene, mid, uv, bary=None):
     """blendbsdf textured weight (luminance of the weight texture where
     bound, else the scalar weight — blendbsdf.cpp semantics)."""
     from ..core.spectrum import luminance
-    from .common import fast_row_gather
-    row = fast_row_gather(scene.materials.packed, mid)
+    row = scene.materials.packed[mid]
     w = row[..., 26]
     tex_id = row[..., 27].astype(jnp.int32)
     tex_val = eval_texture(scene.textures, tex_id, uv, bary=bary)

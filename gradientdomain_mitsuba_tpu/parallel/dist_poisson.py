@@ -3,7 +3,8 @@
 The cross-tile coupling of the reconstruction (each CG iteration's 5-point
 stencil needs one neighbor row; the CG dot products are global) is the
 context-parallel-shaped component of the design (SURVEY.md §6.7):
-`ppermute` moves 1-row halos over ICI, `psum` reduces the dot products.
+`ppermute` moves 1-row halos between devices, `psum` reduces the dot
+products.
 Semantically identical to models/poisson.solve_l2 — verified by the
 single-vs-multi-chip equivalence test.
 """

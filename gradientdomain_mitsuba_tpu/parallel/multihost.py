@@ -1,6 +1,6 @@
 """Multi-host (multi-process) rendering over DCN — the mtssrv analog.
 
-TPU-native replacement for Mitsuba's cluster rendering
+Replacement for Mitsuba's cluster rendering
 (src/libcore/sched_remote.cpp + src/mitsuba/mtssrv.cpp, SURVEY.md §6.8):
 instead of a TCP daemon receiving serialized scenes and work units, every
 process loads the scene from disk itself (replicated resource), joins a
@@ -8,7 +8,8 @@ jax.distributed coordination service, and participates in ONE global
 `jax.sharding.Mesh` spanning all processes' devices.  The existing
 row-sharded tile renderer (parallel/tiles.py) then runs unchanged — its
 `ppermute` halo exchange crosses process boundaries over DCN exactly
-where the single-host version crosses ICI — and the final film is
+where the single-host version crosses the local interconnect — and the
+final film is
 gathered to every host with `process_allgather`.
 
 Tested without a real cluster by spawning N CPU-backend processes on one

@@ -1,6 +1,6 @@
 """Host-side elastic tile queue: idempotent render-tile redispatch.
 
-TPU-native analog of the failure-recovery gap in Mitsuba's scheduler
+Analog of the failure-recovery gap in Mitsuba's scheduler
 (src/libcore/sched_remote.cpp aborts the whole job when a remote worker
 drops — SURVEY.md §6.3): because every tile here is a PURE function of
 (scene, seed, tile rows, sample range), a failed dispatch can simply be

@@ -1,13 +1,13 @@
 """Multi-chip tile-parallel rendering: shard_map over a device mesh.
 
-TPU-native replacement for Mitsuba's scheduler + cluster rendering
+Replacement for Mitsuba's scheduler + cluster rendering
 (src/libcore/sched.cpp, sched_remote.cpp, mtssrv): instead of streaming
 32x32 work units over TCP to worker nodes, the film is row-block sharded
 over a 1-D `jax.sharding.Mesh`; the scene pytree is replicated; every chip
 renders its own rows.  The gradient-domain coupling at tile boundaries
 (G-PT's dy pairs straddle the row split, and wide reconstruction filters
 splat across it) is handled with a B-row halo per shard that is exchanged
-over ICI with `ppermute` and accumulated — the renderer's analog of
+between devices with `ppermute` and accumulated — the renderer's analog of
 context-parallel halo exchange (SURVEY.md §6.7).
 """
 from __future__ import annotations
@@ -125,7 +125,7 @@ def render_tiles_gpt(tracer, scene, mesh, seed, n_samples: int):
             return dict(primal=fb, dx=dx, dy=dy, very_direct=vd, wsum=wb)
 
         bufs = jax.lax.fori_loop(0, n_samples, body, bufs)
-        # ICI halo exchange: border splats belong to neighboring shards
+        # halo exchange: border splats belong to neighboring shards
         return {k: _halo_exchange_add(v, B) for k, v in bufs.items()}
 
     fn = shard_map(shard_fn, mesh=mesh,
@@ -144,16 +144,17 @@ def render_tiles_gpt(tracer, scene, mesh, seed, n_samples: int):
 
 
 def render_tiles_gbdpt(tracer, scene, mesh, seed, n_samples: int):
-    """Row-sharded G-BDPT render over the mesh (VERDICT r3 next-item #5).
+    """Row-sharded G-BDPT render over the mesh.
 
     Camera-path buffers (primal/very-direct + the camera-pixel gradient
     splats) work like render_tiles_gpt: each shard owns a row block plus
-    a filter-radius halo, exchanged over ICI.  The BDPT-specific part is
+    a filter-radius halo, exchanged with its neighbours.  The BDPT-specific
+    part is
     the LIGHT IMAGE: t=1 (light-tracing) strategies splat at ARBITRARY
     film positions — the reference ships these blocks back to the master
     film over TCP (gbdpt_wr.cpp light-image blocks [G]); here every
     shard accumulates its own full-film light/t1-gradient buffers and a
-    single `psum` over ICI merges them (the splats are additive), after
+    single `psum` over the mesh merges them (the splats are additive), after
     which each shard keeps its own row slice.  At 3x[H,W,3] f32 the
     all-reduce is a few MB — noise next to the render itself."""
     from ..models.gpt import OFFSETS
@@ -218,7 +219,7 @@ def render_tiles_gbdpt(tracer, scene, mesh, seed, n_samples: int):
                         wsum=wb, light=li, dxt1=dxt1, dyt1=dyt1)
 
         bufs = jax.lax.fori_loop(0, n_samples, body, bufs)
-        # camera-path halos ride ICI ppermute; light-image/t1 buffers
+        # camera-path halos ride ppermute; light-image/t1 buffers
         # merge with ONE psum (splats are additive), then every shard
         # keeps its own row slice
         out = {k: _halo_exchange_add(bufs[k], B)

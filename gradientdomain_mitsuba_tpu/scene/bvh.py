@@ -1,10 +1,10 @@
 """BVH construction (host-side, numpy) for the wavefront traversal kernels.
 
-TPU-native replacement for Mitsuba's SAH kd-tree builder
+Replacement for Mitsuba's SAH kd-tree builder
 (src/librender/skdtree.cpp + include/mitsuba/render/{gkdtree,sahkdtree3}.h).
-A BVH fits the TPU better than a kd-tree: bounded memory, short-stack
-wavefront traversal with no mailboxing, and prims can be reordered so leaf
-prims are contiguous (coalesced HBM reads in the Pallas kernel).
+A BVH fits a wavefront better than a kd-tree: bounded memory, short-stack
+traversal with no mailboxing, and prims can be reordered so leaf prims are
+contiguous (coalesced device-memory reads).
 
 Builder: top-down binned SAH (16 bins, greedy, median fallback).  Output is
 a flat SoA node array:
@@ -299,8 +299,8 @@ def extract_clusters(tree: BVH, target: int):
 
     Returns (offsets [K], counts [K], bbox_min [K,3], bbox_max [K,3]) in
     BVH prim order.  The clustered traversal (ops/intersect.py) tests rays
-    against cluster bounds densely (pure VPU work) and then fetches each
-    hit cluster's prim window as ONE contiguous block — the TPU-native
+    against cluster bounds densely and then fetches each
+    hit cluster's prim window as ONE contiguous block — the device-side
     answer to per-lane pointer chasing."""
     offsets, counts, bmins, bmaxs = [], [], [], []
     sub_s, sub_e = subtree_ranges(tree)

@@ -1,6 +1,6 @@
 """Material (BSDF) table: plugin nodes -> SoA parameter arrays + enum.
 
-TPU-native replacement for Mitsuba's BSDF plugin instantiation
+Replacement for Mitsuba's BSDF plugin instantiation
 (src/bsdfs/*.cpp): instead of virtual dispatch per surface interaction, the
 wavefront shader does one branch-free enum dispatch over this table.
 Conductor presets replace the data/ior/*.spd database for common metals.

@@ -1,6 +1,6 @@
 """Participating-media tables: medium plugins -> flat device arrays.
 
-TPU-native replacement for the reference's Medium/PhaseFunction plugin
+Replacement for the reference's Medium/PhaseFunction plugin
 hierarchy (src/medium/{homogeneous,heterogeneous}.cpp, src/volume/
 {constvolume,gridvolume}.cpp, src/phase/{isotropic,hg,rayleigh}.cpp):
 media become rows of a small SoA table gathered per lane by the
@@ -10,8 +10,8 @@ Heterogeneous media carry a scalar density grid (all grids packed into
 ONE flat array + per-row offset/resolution, so the device pytree keeps
 a single static shape regardless of how many volumes the scene binds)
 sampled by trilinear interpolation in ops/medium.py, with free flight
-via spectral delta tracking against the row's majorant — the TPU analog
-of heterogeneous.cpp's Woodcock tracking.  Albedo is per-row spectral
+via spectral delta tracking against the row's majorant — the wavefront
+analog of heterogeneous.cpp's Woodcock tracking.  Albedo is per-row spectral
 (constvolume; a gridvolume albedo collapses to its mean — documented
 deviation), orientation volumes (microflake) are out of scope.
 """

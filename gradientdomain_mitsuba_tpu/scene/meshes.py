@@ -1,6 +1,6 @@
 """Mesh ingestion: OBJ / PLY / Mitsuba .serialized loaders + built-in shapes.
 
-TPU-native replacement for Mitsuba's shape plugins (src/shapes/{obj,ply,
+Replacement for Mitsuba's shape plugins (src/shapes/{obj,ply,
 serialized,rectangle,sphere,cube,disk}.cpp) and TriMesh
 (src/librender/trimesh.cpp).  Everything tessellates to indexed triangles in
 numpy; spheres are tessellated (the analytic-sphere fast path is a later
@@ -465,11 +465,11 @@ def make_hair(fibers, radius=0.025, n_seg=6, reduction=0.0,
               seed=0) -> Mesh:
     """Hair fibers tessellated to capped tubes.
 
-    TPU-native replacement for src/shapes/hair.cpp: the reference builds
+    Replacement for src/shapes/hair.cpp: the reference builds
     a dedicated HairKDTree with exact infinite-cylinder intersections
     per segment; here every fiber becomes an n_seg-sided tube swept
     along a parallel-transport (rotation-minimizing) frame, so hair
-    rides the SAME BVH + MXU traversal as every other shape.  Shading
+    rides the SAME traversal as every other shape.  Shading
     normals are the exact radial tube normals, matching the reference's
     cylinder normals away from joints.  `reduction` drops that fraction
     of fibers (hair.cpp's reduction prop)."""

@@ -1,13 +1,13 @@
 """Geometry prep pipeline + disk cache (SURVEY.md §6.4).
 
-TPU-native replacement for the reference's per-run kd-tree rebuild
+Replacement for the reference's per-run kd-tree rebuild
 (src/librender/skdtree.cpp — Mitsuba 0.5 rebuilds the tree on every
 invocation; SURVEY §6.4 notes "kd-tree is NOT cached" and commits this
 build to a BVH disk cache keyed by scene hash).
 
 Everything that depends ONLY on the triangle soup and the cluster target
 is built here in one shot — BVH, cluster decomposition, padded
-cluster-major layout, Pallas DMA slabs, linear-MT coefficients — and the
+cluster-major layout — and the
 resulting arrays are cached on disk keyed by a blake2b hash of the
 geometry inputs.  A 3M-tri scene costs ~30 s to prep and <2 s to reload.
 
@@ -29,9 +29,9 @@ import numpy as np
 
 from . import bvh as bvh_mod
 
-# Bump whenever the BVH builder, cluster extraction, padded layout, slab
-# packing, or linear-MT coefficient format changes semantically.
-GEOM_CACHE_VERSION = "r4-2"  # r4-2: mt_slabs gained a SPAN-1 zero tail
+# Bump whenever the BVH builder, cluster extraction or padded layout
+# changes semantically.
+GEOM_CACHE_VERSION = "g1"  # g1: no slab or linear-MT tables
 
 CACHE_MIN_TRIS = 100_000
 
@@ -66,9 +66,7 @@ def build_geometry(p0, p1, p2, target: int, times=None) -> dict:
       REMAPPED into the padded layout), tree_depth, order [T],
       window, c_off/c_cnt [K], c_min/c_max [K,3],
       psel [Tp] (padded slot -> bvh-order idx, clamped), valid_slot [Tp],
-      v0/e1/e2 [Tp,3], orig_id [Tp], tri9 [K,16,window],
-      mt_slabs [K,8,4*window] or dummy, linC [10,4*Tp] or dummy,
-      cbounds [K,6].
+      v0/e1/e2 [Tp,3], orig_id [Tp].
     """
     times = times if times is not None else {}
     T = len(p0)
@@ -81,7 +79,7 @@ def build_geometry(p0, p1, p2, target: int, times=None) -> dict:
     order = tree.prim_order
     c_off, c_cnt, c_min, c_max = bvh_mod.extract_clusters(tree, target)
     window = int(c_cnt.max()) if len(c_cnt) else 1
-    window = max(128, -(-window // 128) * 128)  # lane-aligned pallas DMA
+    window = max(128, -(-window // 128) * 128)
     K = len(c_off)
     times["clusters"] = time.time() - t0
 
@@ -128,28 +126,6 @@ def build_geometry(p0, p1, p2, target: int, times=None) -> dict:
     tree_c1 = remap_codes(tree.child1)
     times["layout"] = time.time() - t0
 
-    # [K, 16, window] cluster-major slabs for the Pallas v2 traversal DMA
-    # (rows 0-8 = v0/e1/e2 xyz; 16-row padding = 8-sublane DMA granule)
-    t0 = time.time()
-    tri9 = np.zeros((K, 16, window), np.float32)
-    tri9[:, :9] = (np.stack([v0.T, e1.T, e2.T])
-                   .reshape(9, K, window).transpose(1, 0, 2))
-
-    from ..ops.intersect import build_linear_mt
-    from ..ops.pallas_trace import build_mt_slabs
-    from ..ops.common import BRUTE_FORCE_MAX_TRIS
-    if T <= BRUTE_FORCE_MAX_TRIS:
-        # small scene: single-level matmul sweep over the whole soup
-        linC = build_linear_mt(v0, e1, e2)
-        mt_slabs = np.zeros((1, 8, 4), np.float32)
-    else:
-        # large scene: per-cluster slabs for the Pallas v3 kernel
-        linC_full = build_linear_mt(v0, e1, e2)
-        mt_slabs = build_mt_slabs(linC_full, window)
-        linC = np.zeros((10, 4), np.float32)
-    cbounds = np.concatenate([c_min, c_max], axis=1).astype(np.float32)
-    times["slabs"] = time.time() - t0
-
     return dict(
         tree_c0min=tree.child0_min, tree_c0max=tree.child0_max,
         tree_c1min=tree.child1_min, tree_c1max=tree.child1_max,
@@ -159,8 +135,7 @@ def build_geometry(p0, p1, p2, target: int, times=None) -> dict:
         window=np.int32(window),
         c_off=c_off, c_cnt=c_cnt, c_min=c_min, c_max=c_max,
         psel=psel.astype(np.int64), valid_slot=valid_slot,
-        v0=v0, e1=e1, e2=e2, orig_id=orig_id,
-        tri9=tri9, mt_slabs=mt_slabs, linC=linC, cbounds=cbounds)
+        v0=v0, e1=e1, e2=e2, orig_id=orig_id)
 
 
 def hash_arrays(*arrays, extra: str = "") -> str:

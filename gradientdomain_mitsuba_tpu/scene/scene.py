@@ -1,6 +1,6 @@
 """Scene compilation: plugin IR -> frozen pytree of device arrays.
 
-TPU-native replacement for Scene::initialize + plugin instantiation
+Replacement for Scene::initialize + plugin instantiation
 (src/librender/scene.cpp, src/libcore/plugin.cpp): instead of an object
 graph, the scene becomes flat SoA arrays (triangle soup in BVH order,
 material table, emitter tables, camera matrices) that jitted kernels index.
@@ -26,15 +26,8 @@ class Geometry(NamedTuple):
     tris: TriSoup            # BVH leaf order (window-padded, degenerate tail)
     bvh: BVHArrays
     clusters: ClusterArrays  # two-level traversal (ops/intersect.py)
-    tri9: np.ndarray         # [K, 16, window] cluster slabs (pallas_trace.py)
-    cbounds: np.ndarray      # [K, 6] packed cluster bounds (pallas_trace.py)
-    linC: np.ndarray         # [10, 4*Tp] linear-MT matmul coefficients
-    #                          (ops/intersect.py; [10,4] dummy when unused)
-    mt_slabs: np.ndarray     # [K, 8, 4*window] per-cluster linear-MT DMA
-    #                          slabs (pallas_trace.py; dummy when small)
     # packed per-triangle shading rows in BVH ORDER — ONE gather per hit
-    # instead of a 13-gather dependent chain (TPU gathers are the wavefront
-    # hot spot; see ops/common.fill_intersection):
+    # instead of a 13-gather dependent chain (ops/common.fill_intersection):
     # [0:3] ng, [3:12] n0 n1 n2, [12:18] uv0 uv1 uv2,
     # [18] bsdf_id, [19] emitter_id, [20] shape_id, [21] use_face_normals,
     # [22] uv-area per world-area (mipmap LOD)
@@ -88,8 +81,8 @@ class EmitterTable(NamedTuple):
     env_pdf: np.ndarray       # [He, We] solid-angle pdf per texel
     # packed per-emitter-triangle geometry [sumT, 12]: p0 | p1-p0 | p2-p0 |
     # unit ng — ONE row gather per NEE/emission sample instead of the
-    # 4-gather dependent chain tri_index->indices->positions x3 (the chain
-    # was 2.2 ms of every 4.9 ms G-PT bounce on v5e; see ops/emitter.py)
+    # 4-gather dependent chain tri_index->indices->positions x3
+    # (see ops/emitter.py)
     tri_geo: np.ndarray = np.zeros((1, 12), np.float32)
 
 
@@ -172,7 +165,7 @@ class RenderSettings:
     # adaptive wrappers)
     integrator_children: List[Any] = field(default_factory=list)
     # host prep-phase wall-clock breakdown (parse/mesh/bvh_build/clusters/
-    # layout/slabs/shade + geometry-cache state) — SURVEY §6.4/§6.5
+    # layout/shade + geometry-cache state) — SURVEY §6.4/§6.5
     prep_times: Dict[str, Any] = field(default_factory=dict)
 
 
@@ -559,27 +552,19 @@ def compile_scene(desc: SceneDesc,
     # --- BVH over all triangles -------------------------------------------
     # Built (or loaded from the disk cache keyed by geometry hash —
     # SURVEY §6.4) by scene/prep_cache.py: BVH, cluster decomposition,
-    # padded cluster-major layout, Pallas DMA slabs, linear-MT table.
+    # padded cluster-major layout.
     p0 = positions[indices[:, 0]]
     p1 = positions[indices[:, 1]]
     p2 = positions[indices[:, 2]]
     T = len(p0)
-    # cluster decomposition for the TPU traversal; window grows with the
-    # scene so K stays bounded (phase-1 cost is O(N*K))
+    # cluster decomposition for the two-level cluster traversal
+    # (ops/intersect.make_cluster_intersector): about T/1024 prims per
+    # cluster, between 64 and 128
     import os as _os
     _tgt = _os.environ.get("GDMT_CLUSTER_TARGET")
     if _tgt:
         target = int(_tgt)
     else:
-        # window capped at 256: beyond that the in-kernel [RBLK, 4W]
-        # matmul epilogue exceeds the VMEM budget.  Large scenes instead
-        # grow K; the supercluster worklist build (ops/pallas_trace.py)
-        # is O(N*S) with S = K/SUPER_FACTOR, so the XLA-side cull scales
-        # to multi-million-triangle scenes.
-        # cap 128: the in-kernel epilogue + matmul cost per pending
-        # cluster is linear in the window, and per-ray pending counts
-        # grow sublinearly as windows shrink (measured net win on the
-        # 3M-tri forest)
         target = int(np.clip(-(-T // 1024), 64, 128)) if T > 64 \
             else max(T, 1)
     from . import prep_cache
@@ -595,10 +580,6 @@ def compile_scene(desc: SceneDesc,
     clusters = ClusterArrays(
         bmin=geo["c_min"], bmax=geo["c_max"],
         offset=(np.arange(K, dtype=np.int32) * window))
-    # tri9 feeds only the v2 comparison kernel; at 10M tris it is ~2 GB
-    # of dead HBM weight next to the v3 mt_slabs, so cap it
-    tri9 = geo["tri9"] if T <= 2_000_000 else np.zeros((1, 16, 4),
-                                                       np.float32)
 
     # packed shading rows — computed DIRECTLY in the padded cluster-major
     # layout (one fused [Tp] gather per attribute; the previous
@@ -634,22 +615,6 @@ def compile_scene(desc: SceneDesc,
         child1_min=geo["tree_c1min"], child1_max=geo["tree_c1max"],
         child0=geo["tree_c0"], child1=geo["tree_c1"])
 
-    # linear-MT coefficient table (small scenes) / per-cluster Pallas v3
-    # slabs (large scenes) — built by prep_cache alongside the BVH.
-    # Fresh builds are [K, 8, 4W] (round 5: HALF the bytes per member
-    # DMA; see build_mt_slabs); cache entries from before round 5 store
-    # the 16-row padded layout and are converted here WITHOUT
-    # invalidating the cache: det|u|v columns keep rows 0:6, the t
-    # column group's rows 6:10 move to rows 0:4.
-    linC = geo["linC"]
-    mt_slabs = geo["mt_slabs"]
-    if mt_slabs.shape[1] != 8:
-        W4 = mt_slabs.shape[2]
-        W3 = (W4 // 4) * 3
-        slim = np.zeros((mt_slabs.shape[0], 8, W4), np.float32)
-        slim[:, 0:6, :W3] = mt_slabs[:, 0:6, :W3]
-        slim[:, 0:4, W3:] = mt_slabs[:, 6:10, W3:]
-        mt_slabs = slim
 
     if ana_spheres:
         sph_center = np.stack([a[0] for a in ana_spheres])
@@ -664,8 +629,6 @@ def compile_scene(desc: SceneDesc,
 
     geom = Geometry(
         tris=tris, bvh=bvh_arrays, clusters=clusters,
-        tri9=tri9, cbounds=geo["cbounds"],
-        linC=linC, mt_slabs=mt_slabs,
         tri_shade=tri_shade,
         positions=positions, normals=normals,
         uvs=uvs, indices=indices, tri_shape=tri_shape,

@@ -1,6 +1,6 @@
 """Preetham sun/sky emitters baked to a lat-long environment map.
 
-TPU-native replacement for src/emitters/{sun,sky,sunsky}.cpp: the
+Replacement for src/emitters/{sun,sky,sunsky}.cpp: the
 reference implements the Preetham analytic sky as a dedicated emitter
 plugin with its own sampling code; here the model is evaluated ONCE on
 the host into the framework's standard envmap grid, so the device-side

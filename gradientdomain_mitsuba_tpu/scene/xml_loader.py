@@ -1,6 +1,6 @@
 """Mitsuba XML scene parser.
 
-TPU-native replacement for Mitsuba's SceneHandler (Xerces SAX parser,
+Replacement for Mitsuba's SceneHandler (Xerces SAX parser,
 src/librender/scenehandler.cpp).  Parses unmodified Mitsuba 0.5 scene files:
 plugin elements with typed property children, <transform> stacks, <default>
 + $var substitution (overridable from the CLI via -D, matching

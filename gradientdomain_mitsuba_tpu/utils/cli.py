@@ -1,12 +1,12 @@
 """tpurender — batch rendering CLI.
 
-TPU-native replacement for the `mitsuba` command-line front end
+Replacement for the `mitsuba` command-line front end
 (src/mitsuba/mitsuba.cpp): loads Mitsuba XML scenes, renders each with the
 scene's integrator (or an override), runs screened-Poisson reconstruction
 for the gradient-domain integrators, and writes EXR outputs
 (<out>-primal/-dx/-dy/-direct/-final.exr for gpt/gbdpt, <out>.exr others).
 
-Flags mirror the reference where meaningful on TPU:
+Flags mirror the reference where meaningful on an accelerator:
   -o <file>      output EXR path (single scene only)
   -D key=value   scene parameter ($key substitution)
   -s <spp>       override sample count
@@ -14,7 +14,7 @@ Flags mirror the reference where meaningful on TPU:
   -r <sec>       flush a partial image every <sec> seconds
   -L <level>     log level (trace/debug/info/warn/error)
   -q             quiet
-Accepted for command-line compatibility but inert on TPU (the device
+Accepted for command-line compatibility but inert (the device
 owns its own parallelism; there is no thread pool or block scheduler):
   -p <threads>, -b <blockSize>, -j <scenes>, -c/-S <nodes>.
 """
@@ -66,7 +66,7 @@ def relmse(img, ref, eps_scale=1e-2):
 def build_parser():
     p = argparse.ArgumentParser(
         prog="tpurender",
-        description="TPU-native gradient-domain renderer")
+        description="gradient-domain renderer")
     p.add_argument("scenes", nargs="+", metavar="scene.xml",
                    help="Mitsuba XML scene file(s)")
     p.add_argument("-o", "--output", default=None, help="output EXR path")

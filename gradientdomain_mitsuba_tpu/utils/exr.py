@@ -1,6 +1,6 @@
 """Minimal OpenEXR 2.0 scanline codec in pure Python/numpy.
 
-TPU-native replacement for the EXR paths of Mitsuba's Bitmap class
+Replacement for the EXR paths of Mitsuba's Bitmap class
 (src/libcore/bitmap.cpp, which links the OpenEXR library).  Supports
 single-part scanline images, FLOAT/HALF channels, NONE/ZIPS/ZIP
 compression — enough for film output (-primal/-dx/-dy/-final.exr),

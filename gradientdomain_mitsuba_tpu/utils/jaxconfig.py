@@ -1,79 +1,36 @@
 """Central JAX configuration: persistent compilation cache.
 
 The wavefront render programs are large (bounce loop over the full shading
-system); first-time XLA compilation on the TPU backend takes minutes.  The
-persistent cache makes every subsequent process start in milliseconds.
+system), so first-time XLA compilation takes minutes; the persistent cache
+lets later processes skip it.
+
+Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and this
+module sets no directory.  Otherwise the cache lives at the fixed path
+``<checkout>/.jax_cache/``.  Nothing here initialises a backend.
 """
 from __future__ import annotations
 
 import os
 
-_CONFIGURED = False
+CACHE_ENV = "JAX_COMPILATION_CACHE_DIR"
 
 
-def _host_tag() -> str:
-    """Short fingerprint of this host's CPU.  Includes the model name,
-    not just the feature flags: XLA:CPU AOT entries also bake
-    model-derived tuning pseudo-features (e.g. +prefer-no-gather), so
-    two hosts with identical cpuinfo flags but different models can
-    still produce mutually unloadable entries."""
-    import hashlib
-    parts = []
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if line.startswith(("flags", "model name")):
-                    parts.append(line.strip())
-                    if len(parts) == 2:
-                        break
-    except OSError:
-        pass
-    if not parts:
-        import platform
-        parts = [platform.processor() or "generic"]
-    return hashlib.sha1("|".join(parts).encode()).hexdigest()[:12]
+def default_cache_dir() -> str:
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    return os.path.join(root, ".jax_cache")
 
 
 def configure():
-    global _CONFIGURED
-    if _CONFIGURED:
-        return
-    _CONFIGURED = True
     import jax
 
-    cache_dir = os.environ.get("GDMT_JAX_CACHE")
-    if cache_dir is None:
-        root = os.path.dirname(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))))
-        # scope the cache by the host's CPU feature set: XLA:CPU AOT
-        # results baked for another machine type can SIGILL/SIGSEGV when
-        # loaded (observed as sporadic pytest segfaults when the repo
-        # moves between sandbox hosts), so hosts with different ISAs
-        # must not share entries.  Also scope by the requested platform:
-        # concurrent CPU pytest processes and a TPU bench sharing one
-        # directory have produced truncated entries that ABORT the
-        # reader (jax compilation_cache zstd decompress), so keep their
-        # write sets disjoint.
-        plat = os.environ.get("JAX_PLATFORMS", "").split(",")[0]
-        if not plat:
-            # JAX_PLATFORMS unset: resolve the backend NOW rather than
-            # share a 'default' directory between a TPU process and a
-            # concurrent CPU-fallback process (ADVICE r4 #4 — that
-            # collision produced truncated entries that abort the
-            # reader).  default_backend() initializes the backend; any
-            # process reaching this point uses it immediately anyway,
-            # and processes that want CPU set JAX_PLATFORMS / the
-            # jax_platforms config before importing this package.
-            try:
-                plat = jax.default_backend()
-            except Exception:
-                plat = "default"
-        cache_dir = os.path.join(root, ".jax_cache",
-                                 f"{_host_tag()}-{plat or 'default'}")
-    try:
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    except Exception:
-        pass  # older jax or read-only fs: run without the cache
+    if not os.environ.get(CACHE_ENV):
+        jax.config.update("jax_compilation_cache_dir", default_cache_dir())
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+
+
+def cache_dir():
+    """The compile-cache directory in use (None when caching is off)."""
+    import jax
+    return jax.config.jax_compilation_cache_dir

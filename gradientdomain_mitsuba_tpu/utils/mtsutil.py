@@ -1,6 +1,6 @@
 """tpuutil — utility-plugin runner (the mtsutil analog).
 
-TPU-native replacement for src/mitsuba/mtsutil.cpp + src/utils/: instead
+Replacement for src/mitsuba/mtsutil.cpp + src/utils/: instead
 of dlopen'ing utility plugins by name, each utility is an argparse
 subcommand over the framework's own image I/O (utils/exr.py).
 

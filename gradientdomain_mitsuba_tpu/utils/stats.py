@@ -1,6 +1,6 @@
 """Render statistics and observability.
 
-TPU-native replacement for Mitsuba's StatsCounter/Statistics registry +
+Replacement for Mitsuba's StatsCounter/Statistics registry +
 phase timers (src/libcore/statistics.cpp, timer.cpp): phase wall-clocks,
 derived ray counts (the wavefront design makes ray counts a closed-form
 function of resolution/spp/depth per integrator — no atomic counters on

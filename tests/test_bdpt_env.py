@@ -136,7 +136,7 @@ def test_gbdpt_env_buffers_finite_and_reconstruct():
 
 
 def test_gbdpt_env_family_differentiated():
-    """Round-2 (VERDICT missing #5): the env/delta family no longer
+    """Round-2: the env/delta family no longer
     bypasses gradient estimation.  On an env-lit open box:
       - env-lit content lands in PRIMAL (only depth-1 env stays in
         very_direct),

@@ -1,7 +1,7 @@
 """blendbsdf / mixturebsdf / bumpmap / normalmap wrapper validation
 (reference: src/bsdfs/{blendbsdf,mixturebsdf,bumpmap,normalmap}.cpp).
 
-Round-2 additions (VERDICT r1 missing #7): chi^2 sample-vs-pdf for the
+Round-2 additions: chi^2 sample-vs-pdf for the
 blend mixture, analytic render identities (blend of two diffuse == the
 mean diffuse; constant normal/bump maps are no-ops), and end-to-end
 loads through the XML front door."""

@@ -7,6 +7,7 @@ import pytest
 
 from gradientdomain_mitsuba_tpu.ops import intersect as isec
 from gradientdomain_mitsuba_tpu.scene import bvh as bvh_mod
+from gradientdomain_mitsuba_tpu.scene import scene as sc
 from gradientdomain_mitsuba_tpu.ops.intersect import BVHArrays, TriSoup
 
 
@@ -184,28 +185,89 @@ class TestMatmulTraversal:
         assert np.all(np.asarray(hm.prim) < T)
 
 
-def test_onehot_gather_exact():
-    """fast_row_gather's MXU one-hot path must reproduce table rows
-    bit-exactly (HIGHEST precision matmul; see ops/common.py)."""
+_CLUSTERED_XML = """<scene version="0.5.0">
+  <integrator type="path"><integer name="maxDepth" value="3"/></integrator>
+  <sensor type="perspective">
+    <float name="fov" value="45"/>
+    <transform name="toWorld">
+      <lookat origin="0, 6, -12" target="0, 0, 0" up="0, 1, 0"/>
+    </transform>
+    <sampler type="independent"><integer name="sampleCount" value="2"/></sampler>
+    <film type="hdrfilm">
+      <integer name="width" value="8"/><integer name="height" value="8"/>
+    </film>
+  </sensor>
+  <shape type="obj"><string name="filename" value="{obj}"/>
+    <bsdf type="diffuse"/></shape>
+</scene>
+"""
+
+
+def _clustered_scene(tmp_path, n=40):
+    """A bumpy n x n heightfield (2 n^2 triangles, above the brute-scan
+    limit) loaded through load_scene, so it carries the cluster-major
+    padded layout and the BVH of a large scene."""
+    rs = np.random.RandomState(4)
+    xs = np.linspace(-5, 5, n + 1)
+    X, Z = np.meshgrid(xs, xs)
+    Y = rs.uniform(-0.6, 0.6, X.shape)
+    lines = [f"v {x:.5f} {y:.5f} {z:.5f}"
+             for x, y, z in zip(X.ravel(), Y.ravel(), Z.ravel())]
+    for i in range(n):
+        for j in range(n):
+            a = i * (n + 1) + j + 1
+            b, c, d = a + 1, a + n + 1, a + n + 2
+            lines += [f"f {a} {c} {b}", f"f {b} {c} {d}"]
+    obj = tmp_path / "field.obj"
+    obj.write_text("\n".join(lines) + "\n")
+    xml = tmp_path / "field.xml"
+    xml.write_text(_CLUSTERED_XML.format(obj=obj))
+    return sc.load_scene(str(xml))
+
+
+@pytest.mark.parametrize("kind", ["closest", "occluded"])
+def test_soa_matches_brute_on_loaded_clustered_scene(tmp_path, kind):
+    """The GPU's large-scene traversal (SoA stack, depth from the scene's
+    settings) == brute force on a scene loaded through load_scene."""
     from gradientdomain_mitsuba_tpu.ops import common
-    rs = np.random.RandomState(0)
-    table = jnp.asarray(rs.randn(256, 23).astype(np.float32))
-    idx = jnp.asarray(rs.randint(0, 256, 4096), jnp.int32)
-    # exercise the one-hot formula directly (the dispatcher falls back to
-    # a plain gather on CPU)
-    oh = (idx[:, None] == jnp.arange(256, dtype=jnp.int32)[None, :])
-    got = jax.lax.dot(oh.astype(table.dtype), table,
-                      precision=jax.lax.Precision.HIGHEST)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(table[idx]))
-    # and the public entry point, whatever backend we are on
-    np.testing.assert_array_equal(
-        np.asarray(common.fast_row_gather(table, idx)),
-        np.asarray(table[idx]))
+    scene, st = _clustered_scene(tmp_path)
+    g = scene.geom
+    assert int(g.indices.shape[0]) > common.BRUTE_FORCE_MAX_TRIS
+    rs = np.random.RandomState(8)
+    N = 512
+    o = np.float32(rs.uniform(-5, 5, (N, 3)))
+    o[:, 1] = rs.uniform(1.0, 3.0, N)
+    d = np.float32(rs.normal(size=(N, 3)))
+    d[:, 1] = -np.abs(d[:, 1]) - 0.2
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = jnp.asarray(o), jnp.asarray(d)
+    mint = jnp.zeros(N)
+    if kind == "closest":
+        maxt = jnp.full(N, 3e38)
+        f = jax.jit(isec.make_bvh_intersector_soa(st.stack_depth))
+        hit = f(o, d, mint, maxt, g.tris, g.bvh)
+        ref = isec.intersect_brute(o, d, mint, maxt, g.tris, chunk=1024)
+        np.testing.assert_array_equal(np.asarray(hit.valid),
+                                      np.asarray(ref.valid))
+        m = np.asarray(ref.valid)
+        assert m.mean() > 0.5
+        np.testing.assert_array_equal(np.asarray(hit.prim)[m],
+                                      np.asarray(ref.prim)[m])
+        np.testing.assert_allclose(np.asarray(hit.t)[m],
+                                   np.asarray(ref.t)[m], rtol=1e-5)
+    else:
+        maxt = jnp.asarray(np.float32(rs.uniform(0.5, 4.0, N)))
+        f = jax.jit(isec.make_bvh_occluder_soa(st.stack_depth))
+        occ = np.asarray(f(o, d, mint, maxt, g.tris, g.bvh))
+        ref = np.asarray(isec.occluded_brute(o, d, mint, maxt, g.tris,
+                                             chunk=1024))
+        np.testing.assert_array_equal(occ, ref)
+        assert 0 < ref.sum() < N
 
 
 @pytest.mark.slow
 def test_bvh_matches_brute_at_1M_tris():
-    """Large-scene agreement gate (VERDICT r1 missing #3): the SAH build
+    """Large-scene agreement gate: the SAH build
     + SoA traversal must stay exact at >=1M triangles."""
     n_tris = 1_000_000
     rs = np.random.RandomState(42)
@@ -233,7 +295,7 @@ def test_bvh_matches_brute_at_1M_tris():
 
 
 def test_bvh_matches_brute_at_262k_tris():
-    """Default-gate large-model traversal proof (VERDICT r2 next #7):
+    """Default-gate large-model traversal proof:
     the SAH build + SoA traversal stays exact at 262k triangles without
     opting into -m slow (the 1M-tri variant above stays slow-only)."""
     n_tris = 262_144

@@ -232,7 +232,7 @@ def test_orientation_grid_constant_matches_vector(tmp_path):
 def test_flake_orientation_rotated_toworld(tmp_path):
     """A rotated medium toWorld must rotate gridvolume fiber axes into
     world space (gridvolume.cpp lookupVector applies the volumeToWorld
-    linear part before normalization) — ADVICE r3: the identity-transform
+    linear part before normalization) — the identity-transform
     tests could not catch a missing rotation."""
     from gradientdomain_mitsuba_tpu.scene import scene as sc
     from tests.test_hetmedia import write_vol

@@ -1,345 +1,141 @@
-"""Pallas traversal kernel logic validation (interpret mode on CPU).
+"""Fused small-scene sweep kernel (ops/pallas_sweep.py) in interpret mode.
 
-The device path is exercised separately on TPU hardware; interpret mode
-pins down the kernel MATH against brute force regardless of backend."""
-import functools
+On the CPU, Pallas runs the kernel through its interpreter, which pins
+down the kernel's arithmetic, tie rule, padding and dead-lane handling
+against the plain forms in ops/intersect.py.  Its compiled form on the
+GPU is checked by chip_smoke.py (phase kernels)."""
+import os
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental import pallas as pl
 
 from gradientdomain_mitsuba_tpu.ops import intersect as isec
-from gradientdomain_mitsuba_tpu.ops import pallas_trace as ptr
-from gradientdomain_mitsuba_tpu.scene import bvh as bvh_mod
+from gradientdomain_mitsuba_tpu.ops import pallas_sweep as psw
 from gradientdomain_mitsuba_tpu.scene import scene as sc
 
-
-@pytest.fixture()
-def interpret_pallas(monkeypatch):
-    monkeypatch.setattr(ptr.pl, "pallas_call",
-                        functools.partial(pl.pallas_call, interpret=True))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def test_pallas_intersector_matches_brute(interpret_pallas):
-    import os
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    scene, st = sc.load_scene(
-        os.path.join(root, "data/scenes/cbox-mats/cbox-mats.xml"),
-        {"width": "16", "height": "16", "spp": "1", "maxDepth": "2"})
-    K = scene.geom.clusters.offset.shape[0]
-    rs = np.random.RandomState(0)
-    N = 2048
-    o = jnp.asarray(np.float32(rs.uniform(50, 500, (N, 3))))
+def _soup(rs, T):
+    v0 = np.float32(rs.normal(size=(T, 3)))
+    e1 = np.float32(rs.normal(size=(T, 3)))
+    e2 = np.float32(rs.normal(size=(T, 3)))
+    tris = isec.TriSoup(v0=jnp.asarray(v0), e1=jnp.asarray(e1),
+                        e2=jnp.asarray(e2),
+                        orig_id=jnp.arange(T, dtype=jnp.int32))
+    return tris, jnp.asarray(isec.build_linear_mt(v0, e1, e2))
+
+
+def _rays(rs, N, tmax):
+    o = jnp.asarray(np.float32(rs.normal(size=(N, 3)) * 3))
     d = jnp.asarray(np.float32(rs.normal(size=(N, 3))))
     d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-    mint = jnp.zeros(N)
-    maxt = jnp.full(N, 3e38)
-    f = ptr.make_pallas_intersector(st.cluster_window, K)
-    h = f(o, d, mint, maxt, scene.geom.tri9, scene.geom.cbounds)
-    h2 = isec.intersect_brute(o, d, mint, maxt, scene.geom.tris,
-                              chunk=1024)
-    np.testing.assert_array_equal(np.asarray(h.valid),
-                                  np.asarray(h2.valid))
-    m = np.asarray(h2.valid)
-    np.testing.assert_allclose(np.asarray(h.t)[m], np.asarray(h2.t)[m],
-                               rtol=1e-4)
-    np.testing.assert_array_equal(np.asarray(h.prim)[m],
-                                  np.asarray(h2.prim)[m])
+    mint = jnp.full((N,), 1e-4, jnp.float32)
+    # every 7th lane dead (maxt = -1, as finished wavefront paths)
+    maxt = jnp.where(jnp.arange(N) % 7 == 0, -1.0, tmax)
+    return o, d, mint, maxt
 
 
-def test_pallas_occluder_matches_brute(interpret_pallas):
-    import os
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    scene, st = sc.load_scene(
-        os.path.join(root, "data/scenes/cbox-mats/cbox-mats.xml"),
-        {"width": "16", "height": "16", "spp": "1", "maxDepth": "2"})
-    K = scene.geom.clusters.offset.shape[0]
-    rs = np.random.RandomState(3)
-    N = 1024
-    o = jnp.asarray(np.float32(rs.uniform(50, 500, (N, 3))))
-    d = jnp.asarray(np.float32(rs.normal(size=(N, 3))))
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-    mint = jnp.zeros(N)
-    maxt = jnp.full(N, 300.0)
-    f = ptr.make_pallas_occluder(st.cluster_window, K)
-    occ = f(o, d, mint, maxt, scene.geom.tri9, scene.geom.cbounds)
-    ref = isec.occluded_brute(o, d, mint, maxt, scene.geom.tris,
-                              chunk=1024)
-    np.testing.assert_array_equal(np.asarray(occ), np.asarray(ref))
-
-
-# ---------------------------------------------------------------------------
-# v3 kernel: in-kernel linear-MT matmul sweeps + sorted rays
-# ---------------------------------------------------------------------------
-
-def _mats_scene_with_slabs():
-    import os
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    scene, st = sc.load_scene(
-        os.path.join(root, "data/scenes/cbox-mats/cbox-mats.xml"),
-        {"width": "16", "height": "16", "spp": "1", "maxDepth": "2"})
-    # small scenes do not carry slabs; build them the same way scene.py
-    # does for large ones
-    g = scene.geom
-    linC_full = isec.build_linear_mt(g.tris.v0, g.tris.e1, g.tris.e2)
-    slabs = jnp.asarray(ptr.build_mt_slabs(linC_full, st.cluster_window))
-    return scene, st, slabs
-
-
-def test_pallas_mt_intersector_matches_brute(interpret_pallas):
-    scene, st, slabs = _mats_scene_with_slabs()
-    K = scene.geom.clusters.offset.shape[0]
-    rs = np.random.RandomState(0)
-    N = 2048
-    o = jnp.asarray(np.float32(rs.uniform(50, 500, (N, 3))))
-    d = jnp.asarray(np.float32(rs.normal(size=(N, 3))))
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-    mint = jnp.zeros(N)
-    maxt = jnp.full(N, 3e38)
-    f = ptr.make_pallas_mt_intersector(st.cluster_window, K)
-    h = f(o, d, mint, maxt, slabs, scene.geom.cbounds)
-    h2 = isec.intersect_brute(o, d, mint, maxt, scene.geom.tris,
-                              chunk=1024)
-    # the linear decomposition reassociates the MT arithmetic: near-total
-    # agreement rather than bit equality (see test_intersect.py)
-    valid_agree = (np.asarray(h.valid) == np.asarray(h2.valid)).mean()
-    assert valid_agree > 0.998, valid_agree
-    m = np.asarray(h2.valid) & np.asarray(h.valid)
-    prim_agree = (np.asarray(h.prim)[m] == np.asarray(h2.prim)[m])
-    assert prim_agree.mean() > 0.995
-    mm = m.copy()
-    mm[m] &= prim_agree
-    np.testing.assert_allclose(np.asarray(h.t)[mm], np.asarray(h2.t)[mm],
-                               rtol=1e-2)
-
-
-def test_pallas_mt_occluder_matches_brute(interpret_pallas):
-    scene, st, slabs = _mats_scene_with_slabs()
-    K = scene.geom.clusters.offset.shape[0]
-    rs = np.random.RandomState(3)
-    N = 1024
-    o = jnp.asarray(np.float32(rs.uniform(50, 500, (N, 3))))
-    d = jnp.asarray(np.float32(rs.normal(size=(N, 3))))
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-    mint = jnp.zeros(N)
-    maxt = jnp.full(N, 400.0)
-    f = ptr.make_pallas_mt_occluder(st.cluster_window, K)
-    occ = f(o, d, mint, maxt, slabs, scene.geom.cbounds)
-    occ2 = isec.occluded_brute(o, d, mint, maxt, scene.geom.tris,
-                               chunk=1024)
-    agree = (np.asarray(occ) == np.asarray(occ2)).mean()
-    assert agree > 0.998, agree
-
-
-def test_sort_rays_roundtrip():
-    rs = np.random.RandomState(7)
-    N = 512
-    o = jnp.asarray(np.float32(rs.uniform(-5, 5, (N, 3))))
-    d = jnp.asarray(np.float32(rs.normal(size=(N, 3))))
-    mint = jnp.asarray(np.float32(rs.uniform(0, 1, N)))
-    maxt = jnp.asarray(np.float32(rs.uniform(10, 20, N)))
-    so, sd, smi, sma, inv = ptr.sort_rays(
-        o, d, mint, maxt, jnp.array([-5.0, -5.0, -5.0]),
-        jnp.array([5.0, 5.0, 5.0]))
-    # unsort restores the original order exactly
-    _, r0, r1, r2, rm = jax.lax.sort(
-        (inv, so[:, 0], so[:, 1], so[:, 2], smi), dimension=0, num_keys=1)
-    np.testing.assert_array_equal(np.asarray(r0), np.asarray(o[:, 0]))
-    np.testing.assert_array_equal(np.asarray(rm), np.asarray(mint))
-
-
-# ---------------------------------------------------------------------------
-# v4: chunked worklists + block-conservative build (large-scene scaling)
-# ---------------------------------------------------------------------------
-
-def _rand_rays(rs, N, lo=50, hi=500, tmax=3e38):
-    o = jnp.asarray(np.float32(rs.uniform(lo, hi, (N, 3))))
-    d = jnp.asarray(np.float32(rs.normal(size=(N, 3))))
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-    return o, d, jnp.zeros(N), jnp.full(N, tmax)
-
-
-def test_super_worklist_covers_per_ray_pending():
-    """Every SUPERCLUSTER any ray in a block can enter (per-ray exact
-    numpy AABB test) must appear among the first `count` entries of that
-    block's worklist — the property that makes the kernel's on-chip
-    member expansion safe (no pending cluster can be skipped)."""
-    scene, st, slabs = _mats_scene_with_slabs()
-    cb = jnp.asarray(scene.geom.cbounds)
-    rs = np.random.RandomState(11)
-    RBLK = ptr.MT_RBLK
-    o, d, mint, maxt = _rand_rays(rs, RBLK, tmax=700.0)
-    so, sd, smi, sma, _ = ptr.sort_rays(
-        o, d, mint, maxt, cb[:, 0:3].min(0), cb[:, 3:6].max(0))
-    rays = jnp.concatenate([so, sd, smi[:, None], sma[:, None]], axis=1)
-    cnt, work = ptr._super_worklists(rays, 1, RBLK, cb)
-
-    # exact per-ray pending supers in numpy
-    scb = np.asarray(ptr._super_bounds(cb))
-    o_n = np.asarray(so)[:, None]
-    d_n = np.asarray(sd)[:, None]
-    invd = np.where(np.abs(d_n) > 1e-12, 1.0 / d_n, 1e30)
-    t0 = (scb[None, :, 0:3] - o_n) * invd
-    t1 = (scb[None, :, 3:6] - o_n) * invd
-    tn = np.minimum(t0, t1).max(-1)
-    tf = np.maximum(t0, t1).min(-1)
-    pend = ((tn <= tf) & (tf >= np.asarray(smi)[:, None]) &
-            (tn <= np.asarray(sma)[:, None]))
-    exact = set(np.nonzero(pend.any(0))[0].tolist())
-
-    flat = np.asarray(work)[0, :, 0, :].reshape(-1)
-    listed = set(flat[:int(np.asarray(cnt)[0])].astype(np.int64).tolist())
-    assert exact <= listed, sorted(exact - listed)
-
-
-def test_pallas_mt_blockwise_matches_brute(interpret_pallas):
-    """Random incoherent rays through the super-worklist kernel must
-    match the brute-force reference."""
-    scene, st, slabs = _mats_scene_with_slabs()
-    K = scene.geom.clusters.offset.shape[0]
-    rs = np.random.RandomState(5)
-    o, d, mint, maxt = _rand_rays(rs, 1024)
-    f = ptr.make_pallas_mt_intersector(st.cluster_window, K)
-    h = f(o, d, mint, maxt, slabs, scene.geom.cbounds)
-    h2 = isec.intersect_brute(o, d, mint, maxt, scene.geom.tris,
-                              chunk=1024)
-    valid_agree = (np.asarray(h.valid) == np.asarray(h2.valid)).mean()
-    assert valid_agree > 0.998, valid_agree
-    m = np.asarray(h2.valid) & np.asarray(h.valid)
-    prim_agree = (np.asarray(h.prim)[m] == np.asarray(h2.prim)[m])
-    assert prim_agree.mean() > 0.995
-
-
-def test_subtree_ranges_match_leaf_partition():
-    """subtree_ranges (vectorized bottom-up) must agree with a direct
-    recursive reference on a moderate tree."""
-    rs = np.random.RandomState(2)
-    T = 20000
-    c = rs.uniform(0, 10, (T, 3)).astype(np.float32)
-    e1 = rs.normal(0, 0.05, (T, 3)).astype(np.float32)
-    e2 = rs.normal(0, 0.05, (T, 3)).astype(np.float32)
-    tree = bvh_mod.build_python(c, c + e1, c + e2)
-    s, e = bvh_mod.subtree_ranges(tree)
-
-    import sys
-    sys.setrecursionlimit(100000)
-
-    def ref(code):
-        if code < 0:
-            raw = -int(code) - 1
-            off = raw >> bvh_mod.LEAF_BITS
-            cnt = raw & ((1 << bvh_mod.LEAF_BITS) - 1)
-            return (off, off + cnt) if cnt else (1 << 60, 0)
-        s0, e0 = ref(tree.child0[code])
-        s1, e1_ = ref(tree.child1[code])
-        return min(s0, s1), max(e0, e1_)
-
-    for node in rs.choice(tree.num_nodes, size=200, replace=False):
-        rs_, re_ = ref(int(node))
-        assert (s[node], e[node]) == (rs_, re_), node
-    # root covers everything
-    assert (s[0], e[0]) == (0, T)
-
-
-# ---------------------------------------------------------------------------
-# fused small-scene sweep kernel (ops/pallas_sweep.py)
-
-@pytest.fixture()
-def interpret_sweep(monkeypatch):
-    from gradientdomain_mitsuba_tpu.ops import pallas_sweep as ps
-    monkeypatch.setattr(ps.pl, "pallas_call",
-                        functools.partial(pl.pallas_call, interpret=True))
-
-
-def test_sweep_kernel_matches_matmul(interpret_sweep):
-    """Fused VMEM-resident sweep == intersect_matmul on random soups,
-    including padding-triangle and padding-ray handling."""
-    from gradientdomain_mitsuba_tpu.ops import pallas_sweep as ps
-    rs = np.random.RandomState(7)
-    for T in (3, 36, 130):
-        v0 = jnp.asarray(np.float32(rs.normal(size=(T, 3))))
-        e1 = jnp.asarray(np.float32(rs.normal(size=(T, 3))))
-        e2 = jnp.asarray(np.float32(rs.normal(size=(T, 3))))
-        linC = isec.build_linear_mt(v0, e1, e2)
-        N = 300
-        o = jnp.asarray(np.float32(rs.normal(size=(N, 3)) * 3))
-        d = jnp.asarray(np.float32(rs.normal(size=(N, 3))))
-        d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-        mint = jnp.full((N,), 1e-4, jnp.float32)
-        maxt = jnp.full((N,), 3e38, jnp.float32)
-        ref = isec.intersect_matmul(o, d, mint, maxt, linC)
-        got = ps.make_sweep_intersector(T)(o, d, mint, maxt, linC)
-        np.testing.assert_array_equal(np.asarray(ref.valid),
-                                      np.asarray(got.valid))
+@pytest.mark.parametrize("T", [8, 32, 2048])
+@pytest.mark.parametrize("kind", ["closest", "occluded"])
+def test_sweep_kernel_matches_matmul(kind, T):
+    """The interpret-mode kernel == intersect_brute exactly (same
+    Moeller-Trumbore arithmetic and tie rule) and == the linear-MT
+    intersect_matmul up to its reassociated rounding, on random soups
+    of 8, 32 (the cbox count) and 2048 triangles.  300 rays are not a
+    multiple of the 128-ray block, so the padding rays are exercised."""
+    rs = np.random.RandomState(7 + T)
+    tris, linC = _soup(rs, T)
+    N = 300
+    o, d, mint, maxt = _rays(rs, N, 3e38 if kind == "closest" else 4.0)
+    dead = np.asarray(maxt) < 0
+    if kind == "closest":
+        got = psw.make_sweep_intersector(T, interpret=True)(
+            o, d, mint, maxt, tris)
+        ref = isec.intersect_brute(o, d, mint, maxt, tris, chunk=64)
+        mm = isec.intersect_matmul(o, d, mint, maxt, linC)
+        np.testing.assert_array_equal(np.asarray(got.valid),
+                                      np.asarray(ref.valid))
         mk = np.asarray(ref.valid)
-        np.testing.assert_array_equal(np.asarray(ref.prim)[mk],
-                                      np.asarray(got.prim)[mk])
-        np.testing.assert_allclose(np.asarray(ref.t)[mk],
-                                   np.asarray(got.t)[mk], rtol=1e-4)
-        ro = isec.occluded_matmul(o, d, mint, maxt, linC)
-        go = ps.make_sweep_occluder(T)(o, d, mint, maxt, linC)
-        np.testing.assert_array_equal(np.asarray(ro), np.asarray(go))
+        assert mk.sum() > 10
+        np.testing.assert_array_equal(np.asarray(got.prim)[mk],
+                                      np.asarray(ref.prim)[mk])
+        np.testing.assert_allclose(np.asarray(got.t)[mk],
+                                   np.asarray(ref.t)[mk], rtol=1e-5)
+        np.testing.assert_allclose(np.asarray(got.u)[mk],
+                                   np.asarray(ref.u)[mk], atol=1e-5)
+        assert not np.asarray(got.valid)[dead].any()
+        assert (np.asarray(got.prim)[~mk] == -1).all()
+        # linear-MT: near-total agreement (reassociated arithmetic)
+        assert (np.asarray(mm.valid) == mk).mean() > 0.99
+    else:
+        got = np.asarray(psw.make_sweep_occluder(T, interpret=True)(
+            o, d, mint, maxt, tris))
+        ref = np.asarray(isec.occluded_brute(o, d, mint, maxt, tris,
+                                             chunk=64))
+        np.testing.assert_array_equal(got, ref)
+        assert 0 < ref.sum() < N
+        assert not got[dead].any()
+        mm = np.asarray(isec.occluded_matmul(o, d, mint, maxt, linC))
+        assert (mm == ref).mean() > 0.99
 
 
-# --- v7: bitmask pair records + grouped member sweeps ----------------------
-
-def test_v7_pair_intersector_matches_brute(interpret_pallas):
-    scene, st, slabs = _mats_scene_with_slabs()
-    K = scene.geom.clusters.offset.shape[0]
-    rs = np.random.RandomState(0)
-    N = 2048
-    o = jnp.asarray(np.float32(rs.uniform(50, 500, (N, 3))))
-    d = jnp.asarray(np.float32(rs.normal(size=(N, 3))))
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-    mint = jnp.zeros(N)
-    maxt = jnp.full(N, 3e38)
-    f = ptr.make_pair_intersector(st.cluster_window, K)
-    h = f(o, d, mint, maxt, slabs, scene.geom.cbounds)
-    h2 = isec.intersect_brute(o, d, mint, maxt, scene.geom.tris,
-                              chunk=1024)
-    valid_agree = (np.asarray(h.valid) == np.asarray(h2.valid)).mean()
-    assert valid_agree > 0.998, valid_agree
-    m = np.asarray(h2.valid) & np.asarray(h.valid)
-    prim_agree = (np.asarray(h.prim)[m] == np.asarray(h2.prim)[m])
-    assert prim_agree.mean() > 0.995
-    mm = m.copy()
-    mm[m] &= prim_agree
-    np.testing.assert_allclose(np.asarray(h.t)[mm], np.asarray(h2.t)[mm],
-                               rtol=1e-2)
-
-
-def test_v7_pair_occluder_matches_brute(interpret_pallas):
-    scene, st, slabs = _mats_scene_with_slabs()
-    K = scene.geom.clusters.offset.shape[0]
+@pytest.mark.parametrize("kind", ["closest", "occluded"])
+def test_sweep_kernel_on_padded_scene_layout(kind):
+    """cbox-mats has more triangles than one cluster window, so its soup
+    interleaves real and padding slots; the kernel's compacted table must
+    report hits in the scene's slot order, like the brute scan."""
+    scene, st = sc.load_scene(
+        os.path.join(ROOT, "data/scenes/cbox-mats/cbox-mats.xml"),
+        {"width": "16", "height": "16", "spp": "1", "maxDepth": "2"})
+    g = scene.geom
+    n_tris = int(g.indices.shape[0])
+    assert g.tris.v0.shape[0] > n_tris  # padded layout
     rs = np.random.RandomState(3)
-    N = 1024
+    N = 700
     o = jnp.asarray(np.float32(rs.uniform(50, 500, (N, 3))))
     d = jnp.asarray(np.float32(rs.normal(size=(N, 3))))
     d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
     mint = jnp.zeros(N)
-    maxt = jnp.full(N, 400.0)
-    f = ptr.make_pair_occluder(st.cluster_window, K)
-    occ = f(o, d, mint, maxt, slabs, scene.geom.cbounds)
-    occ2 = isec.occluded_brute(o, d, mint, maxt, scene.geom.tris,
-                               chunk=1024)
-    agree = (np.asarray(occ) == np.asarray(occ2)).mean()
-    assert agree > 0.998, agree
+    maxt = jnp.full(N, 3e38 if kind == "closest" else 300.0)
+    if kind == "closest":
+        got = psw.make_sweep_intersector(n_tris, interpret=True)(
+            o, d, mint, maxt, g.tris)
+        ref = isec.intersect_brute(o, d, mint, maxt, g.tris, chunk=1024)
+        np.testing.assert_array_equal(np.asarray(got.valid),
+                                      np.asarray(ref.valid))
+        mk = np.asarray(ref.valid)
+        np.testing.assert_array_equal(np.asarray(got.prim)[mk],
+                                      np.asarray(ref.prim)[mk])
+        assert (np.asarray(g.tris.orig_id)[np.asarray(got.prim)[mk]]
+                >= 0).all()
+    else:
+        got = psw.make_sweep_occluder(n_tris, interpret=True)(
+            o, d, mint, maxt, g.tris)
+        ref = isec.occluded_brute(o, d, mint, maxt, g.tris, chunk=1024)
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
 
-def test_v7_pair_dead_lanes(interpret_pallas):
-    """maxt = -1 lanes (dead rays) must come back unhit and cost nothing."""
-    scene, st, slabs = _mats_scene_with_slabs()
-    K = scene.geom.clusters.offset.shape[0]
-    rs = np.random.RandomState(5)
-    N = 256
-    o = jnp.asarray(np.float32(rs.uniform(50, 500, (N, 3))))
-    d = jnp.asarray(np.float32(rs.normal(size=(N, 3))))
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-    mint = jnp.zeros(N)
-    maxt = jnp.where(jnp.arange(N) % 2 == 0, -1.0, 3e38)
-    f = ptr.make_pair_intersector(st.cluster_window, K)
-    h = f(o, d, mint, maxt, slabs, scene.geom.cbounds)
-    dead = np.arange(N) % 2 == 0
-    assert not np.asarray(h.valid)[dead].any()
+@pytest.mark.parametrize("n_tris,chunk", [(1, 16), (36, 16), (37, 8)])
+def test_sweep_table_layout(n_tris, chunk):
+    """_tri_table keeps exactly the real slots (orig_id >= 0), in slot
+    order, padded to whole chunks with empty (-1, all-zero) entries."""
+    rs = np.random.RandomState(n_tris)
+    Tp = 64
+    real = np.sort(rs.choice(Tp, n_tris, replace=False))
+    orig = np.full(Tp, -1, np.int32)
+    orig[real] = np.arange(n_tris)
+    v = np.float32(rs.normal(size=(Tp, 3)))
+    tris = isec.TriSoup(v0=jnp.asarray(v), e1=jnp.asarray(v + 1),
+                        e2=jnp.asarray(v + 2), orig_id=jnp.asarray(orig))
+    tab, slot = psw._tri_table(tris, n_tris, chunk)
+    slot = np.asarray(slot)
+    Ts = -(-n_tris // chunk) * chunk
+    assert slot.shape == (Ts,)
+    np.testing.assert_array_equal(slot[:n_tris], real)
+    assert (slot[n_tris:] == -1).all()
+    tab = np.asarray(tab).reshape(Ts // chunk, psw.N_COEF, chunk)
+    v0 = tab[:, 0:3].transpose(0, 2, 1).reshape(Ts, 3)
+    np.testing.assert_array_equal(v0[:n_tris], v[real])
+    assert (tab.transpose(0, 2, 1).reshape(Ts, -1)[n_tris:] == 0).all()

@@ -117,7 +117,7 @@ def test_tile_queue_gives_up_after_max_retries(cbox):
 def test_gbdpt_sharded_matches_single(cbox):
     """G-BDPT over 8 virtual devices == single-chip, INCLUDING the
     light image whose t=1 splats land on foreign shards (merged with a
-    psum over the mesh) — VERDICT r3 next-item #5."""
+    psum over the mesh)."""
     from gradientdomain_mitsuba_tpu.models import gbdpt as gbdpt_mod
     scene, st = cbox
     import copy

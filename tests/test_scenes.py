@@ -124,7 +124,7 @@ def test_orthographic_sensor():
 
 
 # ---------------------------------------------------------------------------
-# Round-2 stress scenes (VERDICT missing #2): door / caustics / forest
+# Round-2 stress scenes: door / caustics / forest
 # ---------------------------------------------------------------------------
 
 DOOR = os.path.join(ROOT, "data/scenes/door/door.xml")

@@ -1,5 +1,5 @@
-"""Compile-time benchmark for the BDPT (s,t) strategy loop (VERDICT r2
-next #6): trace+compile seconds of BDPTracer.render_chunk at several
+"""Compile-time benchmark for the BDPT (s,t) strategy loop: trace+compile
+seconds of BDPTracer.render_chunk at several
 maxDepth values, with the scanned dynamic-(s,t) kernel vs the unrolled
 static loop.  Run on the CPU backend (compile cost is what matters and it
 is backend-portable):

@@ -3,8 +3,9 @@
 Builds a procedural "sphere garden" inside a Cornell-style room —
 tessellated spheres on a grid, triangle count controlled by --tris —
 then times the wavefront path tracer end-to-end on the current backend.
-This exercises the large-scene traversal path (Pallas cluster-DMA kernel
-on TPU, clustered jnp on CPU) that cbox (128 tris) never touches.
+This exercises the large-scene traversal path (the SoA stack traversal on
+the GPU, the cluster traversal on the CPU) that cbox (32 tris) never
+touches.
 
 Usage:
     python tools/bench_large.py --tris 1000000 --size 256 --spp 4

@@ -1,10 +1,9 @@
 """JAX-free verification of every host-side subsystem.
 
-Round-1 judging could not initialize JAX at all in its sandbox (VERDICT
-weak #9) — this script proves the host half of the framework (XML front
-door, mesh loaders, curvature bake, SAH BVH builder, EXR codec, material
-table) without importing jax, so a reviewer on a machine with a wedged
-TPU runtime (or no jaxlib) still gets machine-checked evidence.
+This script checks the host half of the framework (XML front door, mesh
+loaders, curvature bake, SAH BVH builder, EXR codec, material table)
+without importing jax, so a machine without jaxlib still gets
+machine-checked evidence.
 
     python tools/nojax_check.py        # < 30 s, pure numpy + the C++ builder
 

@@ -189,7 +189,7 @@ def main():
     sane = bool(np.isfinite(np.asarray(img)).all() and
                 np.asarray(img).mean() > 1e-3)
     n_tris = int(scene.geom.indices.shape[0])
-    # forest quality evidence (VERDICT r4 weak #5): relMSE of the 4-spp
+    # forest quality evidence: relMSE of the 4-spp
     # render against a longer plain-PT reference of the SAME scene, plus
     # the mean ratio (estimator consistency — must be ~1)
     f_ref_spp = int(os.environ.get("GDMT_FOREST_REF_SPP", "64"))

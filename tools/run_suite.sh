@@ -16,7 +16,7 @@ cd "$(dirname "$0")/.."
 pass=0; fail=0; failed_files=()
 for f in tests/test_*.py; do
   echo "== $f" >&2
-  env -u PYTHONPATH JAX_PLATFORMS=cpu timeout 2400 \
+  env JAX_PLATFORMS=cpu timeout 2400 \
       python -m pytest "$f" -q -p no:cacheprovider "$@" >&2
   rc=$?
   # rc=5: no tests collected/selected (e.g. a slow-only file without
